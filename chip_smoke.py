@@ -4,17 +4,36 @@
 
 Phases, each of which fails the run with a non-zero exit:
   1. device: a CUDA card, its name and power limit, TF32 off;
-  2. build every CUDA kernel of the path from the sources in this checkout;
+  2. build every CUDA kernel of the paths from the sources in this
+     checkout, one nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card at the main
-     path's shapes (RoIPoolF: an (87, 119, 512) map -- a 375x500 image at
-     TEST.SCALE 688 -- and 2048 RoIs with edge cases), bitwise in float32
-     and bfloat16, with its time, the plain version's time and its bound;
+     paths' shapes (an (87, 119, 512) map -- a 375x500 image at scale 688
+     -- and 2048 RoIs with edge cases), with its time, the plain version's
+     time and its bound: the RoIPoolF forward bitwise in float32 and
+     bfloat16; the RoIPoolF backward for 1 and 3 seed batches in both
+     types, bitwise with integer cotangents (the routing), within
+     1e-5 |x| + 1e-6 sum|g| per cell with normal ones (float atomics add in
+     another order on both sides), all zeros for zero cotangents;
   4. the flagship inference path at full width (dilated VGG16-C5, two
      4096-wide towers, 21 classes, bfloat16, random weights from a seed)
      through test_net -> im_detect_all over three synthetic images with
      ~2000 proposals each, counting kernel launches;
   5. the same images with the pool forced to its plain version: the
-     detections must be identical to phase 4.
+     detections must be identical to phase 4;
+  6. flagship webly training at full width: 4 steps of train_model over
+     four synthetic images (SOLVER.BASE_LR lowered to TRAIN_BASE_LR, see
+     there), one step a bagging-mixup blend; finite losses,
+     every trainable leaf moved and no body leaf, the forward kernel once
+     per step and the backward kernel never;
+  7. CSC training at full width: 3 steps, each image labelled with the
+     two classes the untrained model scores highest and WSL.CPG_TAU
+     lowered to 0 so that both are active seeds (at the configured 0.7
+     a class scored below it is none, which the phase also checks); the backward
+     kernel once per active seed, none past WSL.CSC_MAX_ITER; then the saliency maps and CSC weights of one
+     image from the trained state with the pool's backward as the kernel
+     and as the plain version, held to the tolerances of CSC_MAP_TOL.
+``--profile`` adds stage times and torch.profiler's kernel tables for one
+image, one flagship train step and one CSC train step.
 The last lines are the kernel table (JSON), the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result (JSON).
 Imports nothing of JAX. Needs one card; exits non-zero without one.
@@ -32,7 +51,26 @@ import torch
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 IMAGE_SIZES = [(375, 500), (500, 333), (480, 640)]
+TRAIN_IMAGE_SIZES = IMAGE_SIZES + [(333, 500)]
 NUM_PROPOSALS = 2000
+# image-level class of each of the four training images: pairs share it
+# (bagging-mixup draws a partner of the same class)
+TRAIN_CLASSES = [3, 3, 8, 8]
+# numpy seed of the flagship training phase's minibatches: with it the
+# second of the four steps is a bagging-mixup blend (a test holds this)
+FLAGSHIP_TRAIN_SEED = 3
+# SOLVER.BASE_LR of both training phases. The weights are random, not the
+# ImageNet VGG16 the configured 1e-3 is meant for: the clamped CE gradient
+# (up to 1e4) times 1e-3 kills every ReLU of the random head in one step,
+# after which all scores are uniform and every saliency map is zero.
+TRAIN_BASE_LR = 1e-5
+# Kernel against plain pool backward inside the CSC step. Both sum floats
+# with atomics, in an order that changes from run to run, and round the
+# map's gradient to bfloat16 before 13 bfloat16 convolutions: a cell at the
+# 0.1 threshold may fall on either side. At most this share of the
+# binarised cells and of the CSC weights (beyond 0.05) may differ; the runs
+# on an H100 showed none.
+CSC_MAP_TOL = {'binary_share': 0.002, 'weight_share': 0.002}
 
 
 def log(*args):
@@ -58,10 +96,11 @@ def phase_device():
 def phase_build():
     from nafwebsod_torch.ops import _build
     t0 = time.time()
-    reports = _build.build(['roi_pool'])
+    reports = _build.build(['roi_pool', 'roi_pool_bwd'])
     for name, report in reports.items():
         log('nvcc', name, ':', report.strip().replace('\n', ' | '))
     _build.load('roi_pool')
+    _build.load('roi_pool_bwd')
     log('build: %.1f s' % (time.time() - t0))
 
 
@@ -99,13 +138,13 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
-def k1_bound_ms(feat, rois, out):
-    """The larger of bytes / memory rate (map read once, RoIs read once,
-    outputs written once) and this run's max operations (one per bin cell
-    and channel) / the float32 rate."""
+def pool_bound_ms(feat, rois, others):
+    """The larger of bytes / memory rate (the map, the RoIs and every
+    tensor of ``others`` moved once) and this run's max operations (one
+    per bin cell and channel) / the float32 rate."""
     from nafwebsod_torch.ops import roi_pool as rp
     nbytes = (feat.numel() * feat.element_size() + rois.numel() * 4
-              + out.numel() * out.element_size())
+              + sum(t.numel() * t.element_size() for t in others))
     h, w, c = feat.shape
     q = rp._round_half_away(rois[:, 1:5].float().cpu() * 0.125).long()
     x1, y1, x2, y2 = q.unbind(1)
@@ -137,7 +176,7 @@ def phase_k1():
                                  'max abs err %g' % (dtype, err))
         ms = time_ms(lambda: rp.roi_pool_cuda(feat, rois), 50)
         plain_ms = time_ms(lambda: rp.roi_pool_reference(feat, rois), 3)
-        bound_ms, bound_by = k1_bound_ms(feat, rois, got)
+        bound_ms, bound_by = pool_bound_ms(feat, rois, [got])
         log('K1 %s (87,119,512) R=2048: equal, kernel %.4f ms, plain %.4f '
             'ms, bound %.4f ms (%s), empty-bin share %.3f' % (
                 str(dtype), ms, plain_ms, bound_ms, bound_by,
@@ -154,7 +193,74 @@ def phase_k1():
     return row
 
 
-def synthetic_roidb(seed, pixel_means):
+def phase_k3():
+    """The RoIPoolF backward kernel against its plain version."""
+    from nafwebsod_torch.ops import roi_pool as rp
+    rng = np.random.RandomState(0)
+    rois = torch.from_numpy(k1_rois(rng, 2048, 917, 688)).cuda()
+    base = torch.relu(torch.from_numpy(
+        rng.randn(87, 119, 512).astype(np.float32))).cuda()
+    base[40, 60, 7] = float('nan')    # bins the forward maps to 0:
+    base[20, 30, 9] = float('inf')    # nothing may flow back to them
+    ints = torch.from_numpy(rng.randint(-3, 4, (3, 2048, 7, 7, 512))
+                            .astype(np.float32)).cuda()
+    normal = torch.randn(3, 2048, 7, 7, 512, device='cuda',
+                         generator=torch.Generator('cuda').manual_seed(0))
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        feat = base.to(dtype)
+        for seeds in (1, 3):
+            g_int = ints[:seeds].to(dtype)
+            got = rp.roi_pool_backward_cuda(feat, rois, g_int)
+            want = rp.roi_pool_backward_reference(feat, rois, g_int)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    'K3 %s G=%d routes differently from the plain version: '
+                    'max abs err %g' % (dtype, seeds,
+                                        (got - want).abs().max().item()))
+            if not got.any():
+                raise AssertionError('K3 returned all zeros')
+            g = normal[:seeds].to(dtype)
+            got = rp.roi_pool_backward_cuda(feat, rois, g)
+            want = rp.roi_pool_backward_reference(feat, rois, g)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            # two float32 sums of the same terms in different orders: the
+            # sum of the terms' magnitudes bounds every partial sum
+            mass = rp.roi_pool_backward_reference(feat, rois, g.abs())
+            if ((got - want).abs() > 1e-5 * want.abs() + 1e-6 * mass).any():
+                raise AssertionError('K3 %s G=%d differs from the plain '
+                                     'version: max abs err %g' % (
+                                         dtype, seeds, err))
+            if rp.roi_pool_backward_cuda(feat, rois,
+                                         torch.zeros_like(g)).any():
+                raise AssertionError('K3: zero cotangents gave a gradient')
+            ms = time_ms(lambda: rp.roi_pool_backward_cuda(feat, rois, g), 50)
+            zero_ms = time_ms(lambda: rp.roi_pool_backward_cuda(
+                feat, rois, torch.zeros_like(g)), 10)
+            plain_ms = time_ms(lambda: rp.roi_pool_backward_reference(
+                feat, rois, g), 2)
+            bound_ms, bound_by = pool_bound_ms(feat, rois, [g, got])
+            log('K3 %s (87,119,512) R=2048 G=%d: integer cotangents equal, '
+                'normal ones max abs err %.3g (within 1e-5 |x| + 1e-6 sum|g|), '
+                'kernel '
+                '%.4f ms (zero cotangents %.4f ms), plain %.4f ms, bound '
+                '%.4f ms (%s)' % (str(dtype), seeds, err, ms, zero_ms,
+                                  plain_ms, bound_ms, bound_by))
+            if dtype == torch.bfloat16 and seeds == 1:  # the CSC step's call
+                row = {'name': 'roi_pool_bwd', 'route': 'cuda',
+                       'source': 'nafwebsod_torch/ops/csrc/roi_pool_bwd.cu',
+                       'replaces':
+                           'nafwebsod_tpu/ops/pallas/roi_pool_pallas.py:384',
+                       'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                       'bound_ms': bound_ms, 'bound_by': bound_by,
+                       # no single PyTorch call computes this gradient
+                       'library_ms': None}
+    return row
+
+
+def synthetic_roidb(seed, pixel_means, sizes=IMAGE_SIZES):
     """Seeded uint8 BGR images of VOC-like sizes with ~2000 MCG-like
     proposals and objectness each. The pixels are 16-px blocks plus noise
     of a few units around the pixel means: the random-weight network has
@@ -163,7 +269,7 @@ def synthetic_roidb(seed, pixel_means):
     of detections per image."""
     rng = np.random.RandomState(seed)
     roidb = []
-    for i, (h, w) in enumerate(IMAGE_SIZES):
+    for i, (h, w) in enumerate(sizes):
         coarse = rng.uniform(-6, 6, (h // 16 + 2, w // 16 + 2, 3))
         im = np.kron(coarse, np.ones((16, 16, 1)))[:h, :w]
         im = np.clip(pixel_means.reshape(1, 1, 3) + im +
@@ -263,6 +369,260 @@ def phase_slice():
     return launches
 
 
+def train_roidb(pixel_means):
+    """The four synthetic training images: the proposals of
+    ``synthetic_roidb`` with the first row marked as ground truth of the
+    image's class."""
+    roidb = synthetic_roidb(2, pixel_means, TRAIN_IMAGE_SIZES)
+    for entry, cls in zip(roidb, TRAIN_CLASSES):
+        entry['gt_classes'] = np.zeros(len(entry['boxes']), np.int32)
+        entry['gt_classes'][0] = cls
+    return roidb
+
+
+def reset_counts():
+    from nafwebsod_torch.ops import roi_pool as rp
+    rp.roi_pool_cuda.launches = 0
+    rp.roi_pool_backward_cuda.launches = 0
+
+
+def read_counts():
+    from nafwebsod_torch.ops import roi_pool as rp
+    return rp.roi_pool_cuda.launches, rp.roi_pool_backward_cuda.launches
+
+
+def check_leaves_moved(model, before):
+    for key, value in model.state_dict().items():
+        moved = not torch.equal(value, before[key])
+        if key.startswith('body.') and moved:
+            raise AssertionError('frozen leaf %s changed' % key)
+        if not key.startswith('body.') and not moved:
+            raise AssertionError('trainable leaf %s did not change' % key)
+
+
+def log_steps(name, records):
+    steps = [r['step_s'] * 1e3 for r in records]
+    log('%s: %d steps, losses %s, step ms (host clock, to the loss on the '
+        'host) %s, after the first: median %.1f; minibatch + upload ms %s; '
+        'peak device memory %.0f MiB' % (
+            name, len(records), ['%.4f' % r['loss'] for r in records],
+            ['%.1f' % t for t in steps],
+            statistics.median(steps[1:]) if steps[1:] else float('nan'),
+            ['%.1f' % (r['data_s'] * 1e3) for r in records],
+            torch.cuda.max_memory_allocated() / 2 ** 20))
+
+
+def phase_train_flagship():
+    """Phase 6. Returns the forward kernel's launches."""
+    from nafwebsod_torch.core.config import (FLAGSHIP, cfg,
+                                             merge_cfg_from_cfg, reset_cfg)
+    from nafwebsod_torch.engine.test_engine import initialize_model_from_cfg
+    from nafwebsod_torch.engine.train import train_model
+
+    reset_cfg()
+    merge_cfg_from_cfg(FLAGSHIP)
+    cfg.RNG_SEED = FLAGSHIP_TRAIN_SEED
+    cfg.SOLVER.BASE_LR = TRAIN_BASE_LR
+    roidb = train_roidb(cfg.PIXEL_MEANS)
+    before = {k: v.clone() for k, v in
+              initialize_model_from_cfg().state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    model, opt_state, records = train_model(roidb, max_iters=4)
+    torch.cuda.synchronize()
+    fwd, bwd = read_counts()
+    spec = model.spec
+    assert spec.compute_dtype == 'bfloat16' and spec.hidden_dim == 4096
+    assert spec.num_classes == 21 and spec.freeze_conv_body
+    for r in records:
+        for key in ('loss', 'loss_cls', 'loss_cls_noise',
+                    'class_weight_mean'):
+            if not np.isfinite(r[key]):
+                raise AssertionError('iter %d: %s = %r' % (
+                    r['iter'], key, r[key]))
+    if [r['mixup'] for r in records] != [False, True, False, False]:
+        raise AssertionError('mixup steps: %s' % [r['mixup']
+                                                  for r in records])
+    check_leaves_moved(model, before)
+    if (fwd, bwd) != (len(records), 0):
+        raise AssertionError('flagship training launched K1 %d times and K3 '
+                             '%d times in %d steps' % (fwd, bwd,
+                                                       len(records)))
+    log_steps('flagship training (2048 padded RoIs, step 1 a mixup blend)',
+              records)
+    log('flagship training: class_weight_mean %s, K1 launches %d, K3 '
+        'launches %d' % (['%.4f' % r['class_weight_mean'] for r in records],
+                         fwd, bwd))
+    if '--profile' in sys.argv:
+        profile_train_step('flagship', model, opt_state, roidb)
+    return fwd
+
+
+def device_batch(model, blobs):
+    from nafwebsod_torch.core.config import cfg
+    from nafwebsod_torch.parallel import train_step as ts
+    return ts.to_device_batch(
+        ts.stack_minibatches([blobs], cfg.TPU.SIZE_BUCKET_MULTIPLE),
+        model.device)
+
+
+def image_scores(model, batch):
+    """The (C,) image-level class scores of one training batch, without
+    dropout."""
+    from nafwebsod_torch.models import heads
+    return heads.cls_pred(model.forward_test(
+        batch['image'], batch['rois'], batch['obn_scores'],
+        batch['valid_mask'])['rois_pred'])[0]
+
+
+def csc_maps_and_weights(model, batch, seed):
+    """(saliency maps, CSC weights) of one image, with dropout from
+    ``seed``."""
+    from nafwebsod_torch.ops import cpg as cpg_ops
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed)
+    maps, idx, keep = model.forward_cpg_maps(batch, gen)
+    cls_prob = image_scores(model, batch)[None]
+    w, _, _ = cpg_ops.csc_weights(
+        maps, idx, keep, batch['rois'], batch['labels_oh'], cls_prob,
+        fg_threshold=model.spec.csc_fg_threshold,
+        valid_mask=batch['valid_mask'])
+    return maps, keep, w
+
+
+def phase_train_csc():
+    """Phase 7. Returns (forward launches, backward launches) of the three
+    training steps."""
+    from nafwebsod_torch.core.config import (CSC, cfg, merge_cfg_from_cfg,
+                                             reset_cfg)
+    from nafwebsod_torch.engine.test_engine import initialize_model_from_cfg
+    from nafwebsod_torch.engine.train import build_minibatch, train_model
+    from nafwebsod_torch.ops import roi_pool as rp
+    from nafwebsod_torch.parallel import train_step as ts
+
+    reset_cfg()
+    merge_cfg_from_cfg(CSC)
+    cfg.SOLVER.BASE_LR = TRAIN_BASE_LR
+    tau = cfg.WSL.CPG_TAU
+    cfg.WSL.CPG_TAU = 0.0
+    log('CSC training: WSL.CPG_TAU lowered from %s to 0.0 -- both labelled '
+        'classes of an image (at most TPU.CPG_MAX_GT = %d) are active seeds'
+        % (tau, cfg.TPU.CPG_MAX_GT))
+    roidb = train_roidb(cfg.PIXEL_MEANS)
+    # label each image with the two classes the untrained model scores
+    # highest on it, so that the seeds' gradients are not all zero (the
+    # random head's class softmax is nearly one-hot)
+    fresh = initialize_model_from_cfg()
+    before = {k: v.clone() for k, v in fresh.state_dict().items()}
+    for i, entry in enumerate(roidb):
+        batch = device_batch(fresh, build_minibatch(
+            roidb, i, np.random.RandomState(i)))
+        top = image_scores(fresh, batch).topk(2)
+        entry['gt_classes'][:2] = (top.indices + 1).tolist()
+        log('CSC image %d: labelled classes %s (untrained scores %s)' % (
+            i, entry['gt_classes'][:2].tolist(),
+            ['%.3g' % v for v in top.values.tolist()]))
+    del fresh
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    model, opt_state, records = train_model(roidb, max_iters=3)
+    torch.cuda.synchronize()
+    fwd, bwd = read_counts()
+    spec = model.spec
+    assert spec.compute_dtype == 'bfloat16' and spec.hidden_dim == 4096
+    assert spec.csc and spec.box_head == 'vgg16_2fc'
+    for r in records:
+        for key in ('loss', 'loss_cls_pos', 'loss_cls_neg'):
+            if not np.isfinite(r[key]):
+                raise AssertionError('iter %d: %s = %r' % (
+                    r['iter'], key, r[key]))
+    check_leaves_moved(model, before)
+    active = 2 * len(records)     # both labels of every image, tau = 0
+    if fwd != len(records) or bwd != active or active == 0:
+        raise AssertionError('CSC training launched K1 %d times and K3 %d '
+                             'times in %d steps with %d active seeds' % (
+                                 fwd, bwd, len(records), active))
+    log_steps('CSC training (2048 padded RoIs, 2 active seeds a step)',
+              records)
+    log('CSC training: loss_cls_pos %s, loss_cls_neg %s, K1 launches %d, K3 '
+        'launches %d = active seeds' % (
+            ['%.4g' % r['loss_cls_pos'] for r in records],
+            ['%.4g' % r['loss_cls_neg'] for r in records], fwd, bwd))
+
+    # a step past WSL.CSC_MAX_ITER is plain CE: no seed, no K3
+    late = int(cfg.WSL.CSC_MAX_ITER)
+    k3 = rp.roi_pool_backward_cuda.launches
+    _, _, late_records = train_model(roidb, max_iters=late + 1,
+                                     start_iter=late)
+    if rp.roi_pool_backward_cuda.launches != k3:
+        raise AssertionError('a step past CSC_MAX_ITER launched K3')
+    if abs(late_records[0]['loss_cls_neg']) > 1e-6:
+        raise AssertionError('loss_cls_neg %r past CSC_MAX_ITER' %
+                             late_records[0]['loss_cls_neg'])
+    log('CSC past CSC_MAX_ITER (iter %d): no K3 launch, loss_cls_neg %.2g'
+        % (late, late_records[0]['loss_cls_neg']))
+
+    # the trained state, one image: kernel against plain pool backward
+    batch = device_batch(model, build_minibatch(
+        roidb, 0, np.random.RandomState(5)))
+    k3 = rp.roi_pool_backward_cuda.launches
+    maps_k, keep_k, w_k = csc_maps_and_weights(model, batch, 9)
+    if rp.roi_pool_backward_cuda.launches != k3 + 2 or not keep_k.any():
+        raise AssertionError('expected 2 K3 launches and a kept map, got '
+                             'keep %s' % keep_k.tolist())
+    kernel = rp.roi_pool_backward_cuda
+    rp.roi_pool_backward_cuda = (
+        lambda *a: rp.roi_pool_backward_reference(*a))
+    try:
+        maps_p, keep_p, w_p = csc_maps_and_weights(model, batch, 9)
+    finally:
+        rp.roi_pool_backward_cuda = kernel
+    if kernel.launches != k3 + 2:
+        raise AssertionError('the plain run launched the kernel')
+    thr = spec.csc_fg_threshold
+    binary_share = ((maps_k >= thr) != (maps_p >= thr)).float().mean().item()
+    weight_share = ((w_k - w_p).abs() > 0.05).float().mean().item()
+    log('CSC, kernel against plain pool backward (image 0, dropout seed 9): '
+        'maps max abs diff %.3g, binarised cells that differ %.3g (limit '
+        '%.3g), weights max abs diff %.3g, weights beyond 0.05 %.3g (limit '
+        '%.3g), maps kept %s, foreground share %.3f, weights not 1: %.3f, '
+        'least weight %.3f' % (
+            (maps_k - maps_p).abs().max().item(), binary_share,
+            CSC_MAP_TOL['binary_share'], (w_k - w_p).abs().max().item(),
+            weight_share, CSC_MAP_TOL['weight_share'], keep_k.tolist(),
+            (maps_k[:2] >= thr).float().mean().item(),
+            (w_k != 1).float().mean().item(), w_k.min().item()))
+    if (keep_k.tolist() != keep_p.tolist()
+            or binary_share > CSC_MAP_TOL['binary_share']
+            or weight_share > CSC_MAP_TOL['weight_share']):
+        raise AssertionError('CSC weights differ between the kernel and '
+                             'the plain pool backward')
+
+    # at the configured tau only a labelled class the model scores at tau
+    # or more is a seed: label the untrained model's highest and lowest
+    # class
+    cfg.WSL.CPG_TAU = tau
+    strict = initialize_model_from_cfg()
+    scores = image_scores(strict, batch)
+    labelled = [scores.argmax().item(), scores.argmin().item()]
+    labels = torch.zeros_like(batch['labels_oh'])
+    labels[0, labelled] = 1.0
+    expected = sum(scores[c].item() >= tau for c in labelled)
+    k3 = rp.roi_pool_backward_cuda.launches
+    strict.forward_cpg_maps(dict(batch, labels_oh=labels))
+    ran = rp.roi_pool_backward_cuda.launches - k3
+    log('CSC at WSL.CPG_TAU %s: untrained scores of the labelled classes '
+        '%s, %d of 2 seeds active, %d K3 launches' % (
+            tau, ['%.3g' % scores[c].item() for c in labelled], expected,
+            ran))
+    if ran != expected or expected == 2:
+        raise AssertionError('%d K3 launches for %d seeds at or above '
+                             'WSL.CPG_TAU (of 2 labelled)' % (ran, expected))
+    if '--profile' in sys.argv:
+        profile_train_step('CSC', model, opt_state, roidb)
+    return fwd, bwd
+
+
 def host_ms(fn, reps=10):
     """(min, median, max) host-clock ms of fn() ending in a synchronize,
     after one warm-up call."""
@@ -335,6 +695,87 @@ def profile_image(model, entry):
         log(('  %10.1f us %5d x  %s' % row)[:150])
 
 
+def profile_train_step(name, model, opt_state, roidb):
+    """Where one train step's time goes: host-clock stage times (each
+    ending in a synchronize), and torch.profiler's device time by kernel
+    with the busy share of one whole step. The steps it takes move
+    ``model`` and ``opt_state`` on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from nafwebsod_torch.core.config import cfg
+    from nafwebsod_torch.engine.train import build_minibatch, create_solver
+    from nafwebsod_torch.ops import cpg as cpg_ops
+    from nafwebsod_torch.parallel import train_step as ts
+    from nafwebsod_torch.solver import sgd
+    from nafwebsod_torch.utils.bridge import named_blobs
+
+    hp, mults, _ = create_solver(model)
+    rng = np.random.RandomState(7)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(7)
+    lr = np.float32(cfg.SOLVER.BASE_LR)
+
+    def minibatch():
+        return device_batch(model, build_minibatch(roidb, 0, rng))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.time() - t0) * 1e3
+
+    cpg_ms = []
+    cpg_maps = cpg_ops.cpg_maps
+
+    def timed_cpg_maps(*args, **kwargs):
+        out, ms = timed(lambda: cpg_maps(*args, **kwargs))
+        cpg_ms.append(ms)
+        return out
+
+    params = named_blobs(model)
+    names = [n for n in params if mults[n] != (0.0, 0.0)]
+    rows = []
+    cpg_ops.cpg_maps = timed_cpg_maps
+    try:
+        for _ in range(4):          # the first repetition is the warm-up
+            del cpg_ms[:]
+            batch, t_data = timed(minibatch)
+            (total, _), t_fwd = timed(
+                lambda: model.forward_train(batch, gen))
+            grads, t_bwd = timed(lambda: torch.autograd.grad(
+                total, [params[n] for n in names]))
+            _, t_upd = timed(lambda: sgd.update(
+                params, dict(zip(names, grads)), opt_state, lr, hp, mults))
+            rows.append((t_data, t_fwd - sum(cpg_ms), sum(cpg_ms), t_bwd,
+                         t_upd, tuple(batch['image'].shape[1:3])))
+    finally:
+        cpg_ops.cpg_maps = cpg_maps
+    for row in rows[1:]:
+        log('%s step stages (host clock ms): minibatch + upload %.1f, '
+            'forward %.1f, CPG seeds %.1f, backward %.1f, update %.1f; '
+            'image %s' % ((name,) + row))
+
+    batch = minibatch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        ts.train_step(model, opt_state, batch, lr, gen, hp=hp, mults=mults)
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    kernels = sorted(((e.self_device_time_total, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type != DeviceType.CPU), reverse=True)
+    busy = sum(k[0] for k in kernels)
+    log('%s step profile (image %s): host window %.1f us, kernel time %.1f '
+        'us (%.1f%% busy), %d kernel launches; top kernels by device time:'
+        % (name, tuple(batch['image'].shape[1:3]), wall_us, busy,
+           100.0 * busy / wall_us, sum(k[1] for k in kernels)))
+    for k in kernels[:14]:
+        log(('  %10.1f us %5d x  %s' % k)[:150])
+
+
 def main():
     failed = None
     smi = None
@@ -343,8 +784,16 @@ def main():
         smi = phase_device()
         phase_build()
         k1 = phase_k1()
-        k1['launches'] = phase_slice()
-        kernels.append(k1)
+        k3 = phase_k3()
+        infer_fwd = phase_slice()
+        train_fwd = phase_train_flagship()
+        csc_fwd, k3['launches'] = phase_train_csc()
+        # each path was driven with the counts set to 0 just before it
+        k1['launches'] = infer_fwd + train_fwd + csc_fwd
+        log('K1 launches by path: inference %d, flagship training %d, CSC '
+            'training %d; K3 launches: CSC training %d' % (
+                infer_fwd, train_fwd, csc_fwd, k3['launches']))
+        kernels.extend([k1, k3])
     except Exception as exc:  # report the phase that failed, exit non-zero
         import traceback
         traceback.print_exc()

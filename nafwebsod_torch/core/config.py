@@ -865,6 +865,20 @@ FLAGSHIP = {
     'TPU': {'COMPUTE_DTYPE': 'bfloat16'},
 }
 
+# The values of configs/wsod_families/csc_V-16-C5.yaml (CPG saliency + CSC
+# on the plain 2fc head, the flagship's data and solver recipe). A test
+# holds this dict equal to the YAML file's merge.
+CSC = {
+    **{k: v for k, v in FLAGSHIP.items() if k not in ('WEBLY', 'TEST')},
+    'FAST_RCNN': dict(FLAGSHIP['FAST_RCNN'],
+                      ROI_BOX_HEAD='wsl_heads.add_VGG16_roi_2fc_head'),
+    'TEST': {k: v for k, v in FLAGSHIP['TEST'].items() if k != 'BBOX_AUG'},
+    'WSL': dict(FLAGSHIP['WSL'], CPG=True, CSC=True, CPG_TAU=0.7,
+                CSC_FG_THRESHOLD=0.1, CSC_MAX_ITER=35000),
+    'WEBLY': {'WEBLY_ON': False},
+    'TPU': {'CPG_MAX_GT': 4, 'COMPUTE_DTYPE': 'bfloat16'},
+}
+
 
 # Snapshot defaults for reset_cfg(); keep at module end.
 _DEFAULT_CFG = copy.deepcopy({k: v for k, v in __C.items()})

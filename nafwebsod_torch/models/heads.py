@@ -1,5 +1,6 @@
 """WSDDN / noise-aware webly heads (port of the JAX package's
-``models/heads.py``, the parts on the flagship's inference path).
+``models/heads.py``: the 2fc tower with and without the noisy twin, the
+two-stream outputs and the image-level score).
 
 Parameters are float32 masters cast to the activation dtype at each use,
 as in the JAX package. Hidden fc layers run in the activation dtype; the
@@ -39,18 +40,31 @@ def fc(x, layer, out_dtype=None):
     return F.linear(x, w) + layer.bias.to(x.dtype)
 
 
+def dropout(x, rate, generator, train):
+    """``where(mask, x / keep, 0)`` with the mask drawn from ``generator``
+    (a ``torch.Generator`` on ``x``'s device). No dropout when ``train`` is
+    false or ``generator`` is None: a training forward without a generator
+    is deterministic, which the parity tests rely on."""
+    if not train or rate <= 0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 class FcTower(nn.Module):
     """fc6 -> relu -> dropout -> fc7 -> relu -> dropout (dropout 0.5 only
-    when ``train``)."""
+    when ``train`` and a generator is given)."""
 
     def __init__(self, dim_in, hidden, device=None):
         super().__init__()
         self.fc6 = nn.Linear(dim_in, hidden, device=device)
         self.fc7 = nn.Linear(hidden, hidden, device=device)
 
-    def forward(self, x, train=False):
-        x = F.dropout(F.relu(fc(x, self.fc6)), 0.5, train)
-        return F.dropout(F.relu(fc(x, self.fc7)), 0.5, train)
+    def forward(self, x, train=False, generator=None):
+        x = dropout(F.relu(fc(x, self.fc6)), 0.5, generator, train)
+        return dropout(F.relu(fc(x, self.fc7)), 0.5, generator, train)
 
 
 def roi_transform(feat, rois, obn_scores, spatial_scale, resolution=7,
@@ -78,22 +92,27 @@ def _two_stream(fc8c, fc8d, valid_mask):
     return rois_pred
 
 
-class NoiseHead(nn.Module):
-    """The noise-aware 2fc head and its outputs: a clean fc6/fc7 tower and
-    a noisy one over the same boosted RoI features, the WSDDN fc8c/fc8d
-    two-stream layers on the clean tower, and the noisy residual logits
+class WslHead(nn.Module):
+    """The 2fc head and its outputs: a clean fc6/fc7 tower over the boosted
+    RoI features and the WSDDN fc8c/fc8d two-stream layers on it
+    (``wsl_heads.add_VGG16_roi_2fc_head`` + ``wsl_outputs``). With
+    ``noisy`` it is the noise-aware head: a second, noisy tower over the
+    same features and the noisy residual logits
     (``webly_heads.add_VGG16_roi_2fc_noise_head`` + ``webly_outputs``)."""
 
     def __init__(self, num_classes, roi_feat_dim=512 * 7 * 7, hidden=4096,
-                 device=None):
+                 device=None, noisy=True):
         super().__init__()
         c = num_classes - 1
         self.clean = FcTower(roi_feat_dim, hidden, device)
-        self.noisy = FcTower(roi_feat_dim, hidden, device)
         self.fc8c = nn.Linear(hidden, c, device=device)
         self.fc8d = nn.Linear(hidden, c, device=device)
-        self.noisy_fc8c = nn.Linear(hidden, c, device=device)
-        self.noisy_fc8d = nn.Linear(hidden, c, device=device)
+        if noisy:
+            self.noisy = FcTower(roi_feat_dim, hidden, device)
+            self.noisy_fc8c = nn.Linear(hidden, c, device=device)
+            self.noisy_fc8d = nn.Linear(hidden, c, device=device)
+        else:
+            self.noisy = None
 
     @torch.no_grad()
     def reset_parameters(self, generator):
@@ -103,8 +122,13 @@ class NoiseHead(nn.Module):
                 _xavier_(layer.weight, generator)
                 layer.bias.zero_()
 
-    def towers(self, roi_feat, train=False):
-        return self.clean(roi_feat, train), self.noisy(roi_feat, train)
+    def towers(self, roi_feat, train=False, generator=None):
+        """(fc7 of the clean tower, fc7 of the noisy tower or None). The
+        dropout masks are drawn clean tower first."""
+        clean = self.clean(roi_feat, train, generator)
+        if self.noisy is None:
+            return clean, None
+        return clean, self.noisy(roi_feat, train, generator)
 
     def wsl_outputs(self, fc7, valid_mask=None):
         fc8c = fc(fc7, self.fc8c, torch.float32)
@@ -121,6 +145,11 @@ class NoiseHead(nn.Module):
         out['rois_pred_noise'] = _two_stream(fc8c_noise, fc8d_noise,
                                              valid_mask)
         return out
+
+
+def cls_pred(rois_pred):
+    """Image-level class score: the sum over RoIs, (1, C)."""
+    return rois_pred.sum(dim=0, keepdim=True)
 
 
 def add_background_column(rois_pred):

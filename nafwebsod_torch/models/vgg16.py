@@ -9,6 +9,11 @@ The public layout is the JAX package's NHWC: ``forward`` takes (N, H, W, 3)
 and returns (N, h, w, 512). Inside, the body runs in ``channels_last``, so
 the NCHW views at both ends are free permutes and ``feat[0]`` is already
 the contiguous (h, w, C) map the RoI pooling kernel reads.
+
+The 2x2 max pools are ``F.max_pool2d``: its backward routes a window's
+cotangent to the first max in row-major window order, for stride 2 and
+for the overlapping stride-1 pool4, as the JAX package's ``custom_vjp``
+does (tests hold this on tied inputs, ReLU zeros being the common tie).
 """
 
 import math
@@ -48,9 +53,11 @@ class VGG16(nn.Module):
                                     generator=generator)
                 conv.bias.zero_()
 
-    def forward(self, image):
+    def forward(self, image, freeze_at=2):
         """image: (N, H, W, 3) in the compute dtype. Returns
-        ((N, h, w, 512) features, spatial_scale)."""
+        ((N, h, w, 512) features, spatial_scale). No gradient flows below
+        the end of stage ``freeze_at`` (TRAIN.FREEZE_AT: 2 stops at pool2,
+        0 lets it reach the image)."""
         dtype = image.dtype
         x = image.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
@@ -64,6 +71,8 @@ class VGG16(nn.Module):
             if si < 4:
                 stride = 1 if (si == 3 and self.dilation == 2) else 2
                 x = F.max_pool2d(x, 2, stride)
+            if si + 1 == freeze_at:
+                x = x.detach()
         scale = 1.0 / 8.0 if self.dilation == 2 else 1.0 / 16.0
         return x.permute(0, 2, 3, 1), scale
 

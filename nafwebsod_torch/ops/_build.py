@@ -3,12 +3,14 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for sm_90a into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries go to ``build/torch_kernels/``
-at the root of the checkout, named by a hash of the source and the flags:
-the first use after a change builds, later uses load. ``build`` starts one
+at the root of the checkout, named by a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags: the first use after a change builds,
+later uses load. ``build`` starts one
 ``nvcc`` per missing library, all at once, and waits for them together.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -40,9 +42,11 @@ def nvcc_path():
 
 
 def library_path(name):
-    src = os.path.join(CSRC, name + '.cu')
-    with open(src, 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in [os.path.join(CSRC, name + '.cu')] + sorted(
+            glob.glob(os.path.join(CSRC, '*.cuh'))):
+        with open(src, 'rb') as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, 'lib{}_{}.so'.format(
         name, digest.hexdigest()[:16]))
 

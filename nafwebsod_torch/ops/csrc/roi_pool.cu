@@ -26,29 +26,20 @@
 // RoI's integer bin edges itself (a few integer ops) and loops over each
 // bin's cells. The max runs in float, which is exact for bf16 inputs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "roi_pool_common.cuh"
 
 namespace {
 
+using roi_pool::bin_end;
+using roi_pool::bin_start;
+using roi_pool::to_float;
+
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   // v is a bf16 value widened to float (or 0): the conversion is exact.
   *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ int round_half_away(float coord, float scale) {
-  // __fmul_rn keeps the product from being contracted into an FMA.
-  const float v = __fmul_rn(coord, scale);
-  const float r = floorf(fabsf(v) + 0.5f);
-  return v < 0.f ? -static_cast<int>(r) : static_cast<int>(r);
 }
 
 template <typename T>
@@ -60,22 +51,16 @@ roi_pool_fwd_kernel(const T* __restrict__ feat, const float* __restrict__ rois,
   const int c = blockIdx.y * kThreads + threadIdx.x;
   if (c >= C) return;
 
-  const float* roi = rois + 5LL * r;
-  const int x1 = round_half_away(roi[1], spatial_scale);
-  const int y1 = round_half_away(roi[2], spatial_scale);
-  const int x2 = round_half_away(roi[3], spatial_scale);
-  const int y2 = round_half_away(roi[4], spatial_scale);
-  const int roi_h = max(y2 - y1 + 1, 1);
-  const int roi_w = max(x2 - x1 + 1, 1);
+  const roi_pool::Roi q = roi_pool::load_roi(rois, r, spatial_scale);
 
   const T* fc = feat + c;
   T* oc = out + static_cast<long long>(r) * PH * PW * C + c;
   for (int ph = 0; ph < PH; ++ph) {
-    const int hs = min(max((ph * roi_h) / PH + y1, 0), H);
-    const int he = min(max(((ph + 1) * roi_h + PH - 1) / PH + y1, 0), H);
+    const int hs = bin_start(ph, q.roi_h, PH, q.y1, H);
+    const int he = bin_end(ph, q.roi_h, PH, q.y1, H);
     for (int pw = 0; pw < PW; ++pw) {
-      const int ws = min(max((pw * roi_w) / PW + x1, 0), W);
-      const int we = min(max(((pw + 1) * roi_w + PW - 1) / PW + x1, 0), W);
+      const int ws = bin_start(pw, q.roi_w, PW, q.x1, W);
+      const int we = bin_end(pw, q.roi_w, PW, q.x1, W);
       float m = -INFINITY;
       bool nan = false;  // fmaxf drops NaNs; the plain version's max keeps them
       for (int y = hs; y < he; ++y) {

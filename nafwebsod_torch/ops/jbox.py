@@ -19,6 +19,15 @@ def iou_matrix(boxes_a, boxes_b):
     return torch.where(inter > 0, inter / union, torch.zeros_like(inter))
 
 
+def roi_iou(rois):
+    """N x N IoU of 5-column rois as the reference's ``RoIIoU`` op computes
+    it: coordinates truncated to integers, diagonal exactly 1."""
+    boxes = torch.floor(rois[:, 1:5]).float()
+    j = iou_matrix(boxes, boxes)
+    j.fill_diagonal_(1.0)
+    return j
+
+
 def multiclass_nms_limit(boxes, scores, iou_threshold, score_threshold,
                          max_keep, limit):
     """Class-batched greedy NMS + cross-class detection cap.

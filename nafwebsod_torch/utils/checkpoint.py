@@ -5,8 +5,9 @@ Schema: ``{'blobs': {name: ndarray}, 'cfg': yaml_str}``, conv weights OIHW
 and fc weights (out, in) -- the port's own layouts, so no transpose happens
 at this boundary. A parameter named ``'_[tag]_foo'`` is initialised from
 blob ``foo`` when its own blob is missing: the noisy fc6/fc7 tower shares
-the clean tower's initialisation this way. Momentum and ``__preserve__/``
-blobs are training state; inference ignores them.
+the clean tower's initialisation this way. The solver's momentum is saved
+as ``<name>_momentum`` blobs beside the weights, so a saved step reloads
+bitwise; ``__preserve__/`` blobs are ignored.
 """
 
 import logging
@@ -37,14 +38,17 @@ def load_weights_pkl(path):
 
 
 @torch.no_grad()
-def initialize_from_weights_file(model, path, strict_shapes=True):
-    """Copy the pkl's blobs into ``model``'s parameters. Returns the blob
-    names of the parameters the file did not provide."""
+def initialize_from_weights_file(model, path, strict_shapes=True,
+                                 momentum=None):
+    """Copy the pkl's blobs into ``model``'s parameters, and its momentum
+    blobs into ``momentum`` (the solver state's {blob name: tensor}) when
+    that is given; an aliased parameter takes no momentum. Returns the
+    blob names of the parameters the file did not provide."""
     blobs, _ = load_weights_pkl(path)
     blobs = {unscope_name(k): v for k, v in blobs.items()}
     state = model.state_dict()
     unmatched = []
-    for key, name in blob_names().items():
+    for key, name in blob_names(model).items():
         src = name
         if src not in blobs and _ALIAS_RE.match(src):
             src = _ALIAS_RE.sub('', src)  # '_[noisy]_fc6_w' -> 'fc6_w'
@@ -61,16 +65,24 @@ def initialize_from_weights_file(model, path, strict_shapes=True):
             unmatched.append(name)
             continue
         state[key].copy_(torch.tensor(arr))
+        if (momentum is not None and src == name
+                and name + '_momentum' in blobs):
+            momentum[name].copy_(torch.tensor(
+                np.asarray(blobs[name + '_momentum'])))
     if unmatched:
         logger.info('Params not found in %s: %s', path, unmatched)
     return unmatched
 
 
-def save_weights_file(path, model, cfg_yaml=None):
-    """Write ``model``'s parameters as a reference-format pkl."""
+def save_weights_file(path, model, cfg_yaml=None, momentum=None):
+    """Write ``model``'s parameters, and the solver's ``momentum``
+    ({blob name: tensor}) when given, as a reference-format pkl."""
     state = model.state_dict()
     blobs = {name: state[key].detach().cpu().numpy()
-             for key, name in blob_names().items()}
+             for key, name in blob_names(model).items()}
+    if momentum:
+        for name, value in momentum.items():
+            blobs[name + '_momentum'] = value.detach().cpu().numpy()
     out = {'blobs': blobs}
     if cfg_yaml is not None:
         out['cfg'] = cfg_yaml

@@ -164,13 +164,43 @@ def test_spec_from_flagship_cfg():
         spec = detector.spec_from_cfg(port_config.cfg)
         assert spec == detector.ModelSpec(
             num_classes=21, dilation=2, compute_dtype='bfloat16',
-            hidden_dim=4096)
-        assert spec.dtype == torch.bfloat16
+            hidden_dim=4096, max_gt_cpg=20)
+        assert spec.dtype == torch.bfloat16 and spec.is_webly
         port_config.cfg.WSL.OICR = True
         with pytest.raises(NotImplementedError):
             detector.spec_from_cfg(port_config.cfg)
         port_config.cfg.WSL.OICR = False
         port_config.cfg.MODEL.CONV_BODY = 'ResNet.add_ResNet50_conv4_body'
+        with pytest.raises(NotImplementedError):
+            detector.spec_from_cfg(port_config.cfg)
+    finally:
+        port_config.reset_cfg()
+
+
+def test_spec_from_csc_cfg():
+    port_config.reset_cfg()
+    try:
+        port_config.merge_cfg_from_cfg(port_config.CSC)
+        spec = detector.spec_from_cfg(port_config.cfg)
+        assert spec == detector.ModelSpec(
+            num_classes=21, box_head='vgg16_2fc', webly_on=False,
+            webly_entropy=False,
+            cpg=True, csc=True, cpg_tau=0.7, csc_fg_threshold=0.1,
+            csc_max_iter=35000, max_gt_cpg=4, freeze_at=2,
+            compute_dtype='bfloat16', hidden_dim=4096)
+        assert not spec.is_webly and spec.mean_loss
+        model = detector.build_model(
+            detector.ModelSpec(num_classes=5, hidden_dim=8,
+                               box_head='vgg16_2fc', webly_on=False),
+            device='cpu')
+        assert model.head.noisy is None
+        assert not any('noisy' in k for k in model.state_dict())
+        # the noise-aware head takes no CSC, the plain head no WEBLY_ON
+        port_config.cfg.WEBLY.WEBLY_ON = True
+        with pytest.raises(NotImplementedError):
+            detector.spec_from_cfg(port_config.cfg)
+        port_config.merge_cfg_from_cfg(port_config.FLAGSHIP)
+        port_config.cfg.WSL.CSC = True
         with pytest.raises(NotImplementedError):
             detector.spec_from_cfg(port_config.cfg)
     finally:

@@ -42,7 +42,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(' ', 1)
-    assert int(count) >= 15
+    assert int(count) >= 27
     assert bad.strip() == '[]', proc.stdout
 
 
@@ -58,6 +58,31 @@ def test_chip_smoke_imports_nothing_of_jax():
     assert 'nafwebsod_torch.ops' in imported
     assert not [m for m in imported
                 if m.split('.')[0] in ('jax', 'jaxlib', 'nafwebsod_tpu')]
+
+
+def test_chip_smoke_flagship_seed_blends_the_second_step():
+    """chip_smoke.py's flagship training phase asserts that exactly its
+    second step is a bagging-mixup blend; the draws are host-only numpy,
+    so the seed is held here."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    from nafwebsod_torch.engine.train import build_minibatch
+    port_config.reset_cfg()
+    try:
+        port_config.merge_cfg_from_cfg(port_config.FLAGSHIP)
+        cfg = port_config.cfg
+        # smaller images: the draws do not depend on the scale
+        cfg.TRAIN.SCALES = (96, 112, 128, 144, 160)
+        roidb = chip_smoke.train_roidb(cfg.PIXEL_MEANS)
+        rng = np.random.RandomState(chip_smoke.FLAGSHIP_TRAIN_SEED)
+        blends = [bool(build_minibatch(roidb, i, rng).get('mixup', False))
+                  for i in range(4)]
+        assert blends == [False, True, False, False]
+    finally:
+        port_config.reset_cfg()
 
 
 def _same(a, b, key=''):
@@ -85,6 +110,33 @@ def test_flagship_dict_equals_the_yaml():
         _same(from_yaml, dict(port_config.cfg))
     finally:
         port_config.reset_cfg()
+
+
+def test_csc_dict_equals_the_yaml():
+    pytest.importorskip('yaml')
+    port_config.reset_cfg()
+    try:
+        port_config.merge_cfg_from_file(os.path.join(
+            REPO, 'configs', 'wsod_families', 'csc_V-16-C5.yaml'))
+        from_yaml = dict(port_config.cfg)
+        port_config.reset_cfg()
+        port_config.merge_cfg_from_cfg(port_config.CSC)
+        _same(from_yaml, dict(port_config.cfg))
+    finally:
+        port_config.reset_cfg()
+
+
+def test_name_map_of_the_plain_head_covers_both_sides():
+    kw = dict(num_classes=5, hidden_dim=8, box_head='vgg16_2fc',
+              webly_on=False)
+    params = jax_detector.init_params(jax_detector.ModelSpec(**kw),
+                                      jax.random.PRNGKey(1))
+    model = detector.build_model(detector.ModelSpec(**kw), device='cpu')
+    names = blob_names(model)
+    assert set(names) == set(model.state_dict())
+    assert set(names.values()) == set(params)
+    model.load_state_dict(params_from_jax(
+        {k: np.asarray(v) for k, v in params.items()}))
 
 
 def _flagship_jax_params(hidden=8):
