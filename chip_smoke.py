@@ -13,7 +13,11 @@ Phases, each of which fails the run with a non-zero exit:
      bfloat16; the RoIPoolF backward for 1 and 3 seed batches in both
      types, bitwise with integer cotangents (the routing), within
      1e-5 |x| + 1e-6 sum|g| per cell with normal ones (float atomics add in
-     another order on both sides), all zeros for zero cotangents;
+     another order on both sides), all zeros for zero cotangents; the
+     RoILoopPool forward bitwise in both types on the frame and the context
+     rois of the same proposals plus edge rows, on a ReLU map, a signed map,
+     an all-negative map (all zeros out) and a map with NaN and infinite
+     cells;
   4. the flagship inference path at full width (dilated VGG16-C5, two
      4096-wide towers, 21 classes, bfloat16, random weights from a seed)
      through test_net -> im_detect_all over three synthetic images with
@@ -31,18 +35,36 @@ Phases, each of which fails the run with a non-zero exit:
      a class scored below it is none, which the phase also checks); the backward
      kernel once per active seed, none past WSL.CSC_MAX_ITER; then the saliency maps and CSC weights of one
      image from the trained state with the pool's backward as the kernel
-     and as the plain version, held to the tolerances of CSC_MAP_TOL.
+     and as the plain version, held to the tolerances of CSC_MAP_TOL;
+  8. context inference at full width (one 4096-wide tower over the
+     proposal, frame and context streams) through run_inference ->
+     test_net_on_dataset -> test_net -> the VOC evaluator, over a synthetic
+     VOC-style dataset (COCO json, VOC XML, a proposal pkl) written to a
+     temporary directory and loaded by JsonDataset, the pixels handed over
+     as arrays: RoIPoolF once and RoILoopPool twice per image, finite
+     detections under the cap, mAP and CorLoc finite in [0, 1] (and 1 per
+     class for the ground truth as detections); then the
+     same images with RoILoopPool forced to its plain version: identical
+     detections;
+  9. context training at full width: 3 steps of train_model; finite
+     losses, fc6, fc7, fc8c and fc8d_frame's weight moved (its bias
+     cancels in fc8d and must not move), no body leaf moved, RoIPoolF once
+     and RoILoopPool twice per step, the backward kernel never.
 ``--profile`` adds stage times and torch.profiler's kernel tables for one
-image, one flagship train step and one CSC train step.
+image, one flagship train step and one CSC train step, one context image
+and one context train step.
 The last lines are the kernel table (JSON), the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result (JSON).
 Imports nothing of JAX. Needs one card; exits non-zero without one.
 """
 
 import json
+import os
+import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -96,11 +118,12 @@ def phase_device():
 def phase_build():
     from nafwebsod_torch.ops import _build
     t0 = time.time()
-    reports = _build.build(['roi_pool', 'roi_pool_bwd'])
+    names = ['roi_pool', 'roi_pool_bwd', 'roi_loop_pool']
+    reports = _build.build(names)
     for name, report in reports.items():
         log('nvcc', name, ':', report.strip().replace('\n', ' | '))
-    _build.load('roi_pool')
-    _build.load('roi_pool_bwd')
+    for name in names:
+        _build.load(name)
     log('build: %.1f s' % (time.time() - t0))
 
 
@@ -141,7 +164,8 @@ def time_ms(fn, reps):
 def pool_bound_ms(feat, rois, others):
     """The larger of bytes / memory rate (the map, the RoIs and every
     tensor of ``others`` moved once) and this run's max operations (one
-    per bin cell and channel) / the float32 rate."""
+    per bin cell and channel) / the float32 rate. For 9-column RoIs the
+    cells strictly inside the inner box are not counted."""
     from nafwebsod_torch.ops import roi_pool as rp
     nbytes = (feat.numel() * feat.element_size() + rois.numel() * 4
               + sum(t.numel() * t.element_size() for t in others))
@@ -152,6 +176,13 @@ def pool_bound_ms(feat, rois, others):
     ws, we = rp._bin_edges(x1, (x2 - x1 + 1).clamp(min=1), 7, w)
     cells = ((he - hs).clamp(min=0)[:, :, None] *
              (we - ws).clamp(min=0)[:, None, :]).sum().item()
+    if rois.shape[1] == 9:
+        qi = rp._round_half_away(rois[:, 5:9].float().cpu() * 0.125).long()
+        ix1, iy1, ix2, iy2 = (v[:, None] for v in qi.unbind(1))
+        hole_h = (torch.minimum(he, iy2) - torch.maximum(hs, iy1 + 1))
+        hole_w = (torch.minimum(we, ix2) - torch.maximum(ws, ix1 + 1))
+        cells -= (hole_h.clamp(min=0)[:, :, None] *
+                  hole_w.clamp(min=0)[:, None, :]).sum().item()
     bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
     ops_ms = cells * c / F32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
@@ -260,13 +291,99 @@ def phase_k3():
     return row
 
 
-def synthetic_roidb(seed, pixel_means, sizes=IMAGE_SIZES):
+# Edge rows for RoILoopPool on the (87, 119) map of a 688x917 blob: (batch,
+# outer box, inner box) in blob coordinates.
+K2_EDGE_ROIS = [
+    [0, 100, 100, 500, 400, 100, 100, 500, 400],    # inner box == outer box
+    [0, 100, 100, 500, 400, 300, 200, 300, 200],    # a one-cell inner box
+    [0, 100, 100, 500, 400, 300, 200, 308, 208],    # two cells: no interior
+    [0, 0, 0, 916, 687, 0, 0, 916, 687],     # the image: only its border
+    [0, 800, 600, 916, 687, 800, 600, 916, 687],    # clipped at the corner
+    [0, 700, 500, 1500, 1300, 800, 600, 1400, 1200],    # past the map
+    [0, 2000, 2000, 2100, 2100, 2020, 2020, 2080, 2080],    # off the map
+    [0, 400, 300, 200, 100, 380, 280, 220, 120],    # inverted: extents 1
+    [0, 0, 0, 0, 0, 0, 0, 0, 0],                    # a padded row
+]
+
+
+def phase_k2():
+    """The RoILoopPool kernel against its plain version."""
+    from nafwebsod_torch.ops import context as ctx
+    rng = np.random.RandomState(0)
+    proposals = torch.from_numpy(k1_rois(rng, 2048, 917, 688)).cuda()
+    signed = torch.from_numpy(
+        rng.randn(87, 119, 512).astype(np.float32)).cuda()
+    edge = torch.tensor(K2_EDGE_ROIS, dtype=torch.float32, device='cuda')
+    streams = dict(zip(('frame', 'context'),
+                       ctx.roi_context(proposals, 688, 917, 1.8)))
+    non_finite = signed.clone()
+    non_finite[40, 60, 7] = float('nan')     # a ring with a NaN or +inf
+    non_finite[20, 30, 9] = float('inf')     # gives 0, as the plain version
+    non_finite[50, 70, 11] = float('-inf')   # loses against the 0 floor
+    maps = {'relu': torch.relu(signed), 'signed': signed,
+            'negative': -signed.abs() - 1, 'non-finite': non_finite}
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for stream, rois9 in streams.items():
+            rois9 = torch.cat([rois9, edge]).contiguous()
+            for kind, base in maps.items():
+                feat = base.to(dtype)
+                got = ctx.roi_loop_pool_cuda(feat, rois9)
+                want = ctx.roi_loop_pool_reference(feat, rois9)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        'K2 %s %s rois, %s map differs from the plain '
+                        'version: max abs err %g' % (
+                            dtype, stream, kind,
+                            (got.float() - want.float()).abs().max().item()))
+                if not torch.isfinite(got).all() or (got < 0).any():
+                    raise AssertionError('K2 gave a negative or non-finite '
+                                         'value (%s map)' % kind)
+                if kind == 'negative' and got.any():
+                    raise AssertionError('K2: an all-negative map must pool '
+                                         'to 0 everywhere')
+            feat = maps['relu'].to(dtype)
+            got = ctx.roi_loop_pool_cuda(feat, rois9)
+            want = ctx.roi_loop_pool_reference(feat, rois9)
+            err = (got.float() - want.float()).abs().max().item()
+            ms = time_ms(lambda: ctx.roi_loop_pool_cuda(feat, rois9), 50)
+            plain_ms = time_ms(
+                lambda: ctx.roi_loop_pool_reference(feat, rois9), 3)
+            bound_ms, bound_by = pool_bound_ms(feat, rois9, [got])
+            log('K2 %s (87,119,512) %s rois R=%d: equal on the relu, signed, '
+                'negative and non-finite maps, kernel %.4f ms, plain %.4f '
+                'ms, bound %.4f ms (%s), all-zero-bin share %.3f' % (
+                    str(dtype), stream, rois9.shape[0], ms, plain_ms,
+                    bound_ms, bound_by,
+                    (want == 0).all(-1).float().mean().item()))
+            if dtype == torch.bfloat16:  # the context family's compute dtype
+                rows[stream] = (err, ms, plain_ms, bound_ms, bound_by)
+    # a path launches the kernel once with the frame and once with the
+    # context rois: the row's numbers are the mean of the two launches
+    frame, context = rows['frame'], rows['context']
+    return {'name': 'roi_loop_pool_fwd', 'route': 'cuda',
+            'source': 'nafwebsod_torch/ops/csrc/roi_loop_pool.cu',
+            'replaces':
+                'nafwebsod_tpu/ops/pallas/roi_loop_pool_pallas.py:120',
+            'max_abs_err': max(frame[0], context[0]),
+            'ms': (frame[1] + context[1]) / 2,
+            'plain_ms': (frame[2] + context[2]) / 2,
+            'bound_ms': (frame[3] + context[3]) / 2,
+            'bound_by': context[4],
+            # no single PyTorch call computes a ring max pool
+            'library_ms': None,
+            'ms_frame_rois': frame[1], 'ms_context_rois': context[1]}
+
+
+def synthetic_roidb(seed, pixel_means, sizes=IMAGE_SIZES, min_side=8):
     """Seeded uint8 BGR images of VOC-like sizes with ~2000 MCG-like
     proposals and objectness each. The pixels are 16-px blocks plus noise
     of a few units around the pixel means: the random-weight network has
     zero biases, so its logits scale with the pixel amplitude, and at the
     amplitude of a photograph both softmaxes saturate and leave a handful
-    of detections per image."""
+    of detections per image. The proposals' sides start at ``min_side``
+    pixels."""
     rng = np.random.RandomState(seed)
     roidb = []
     for i, (h, w) in enumerate(sizes):
@@ -276,8 +393,8 @@ def synthetic_roidb(seed, pixel_means, sizes=IMAGE_SIZES):
                      rng.randn(h, w, 3) * 2, 0, 255).astype(np.uint8)
         x1 = rng.uniform(0, w - 8, NUM_PROPOSALS)
         y1 = rng.uniform(0, h - 8, NUM_PROPOSALS)
-        bw = np.exp(rng.uniform(np.log(8), np.log(w), NUM_PROPOSALS))
-        bh = np.exp(rng.uniform(np.log(8), np.log(h), NUM_PROPOSALS))
+        bw = np.exp(rng.uniform(np.log(min_side), np.log(w), NUM_PROPOSALS))
+        bh = np.exp(rng.uniform(np.log(min_side), np.log(h), NUM_PROPOSALS))
         boxes = np.stack([x1, y1, np.minimum(x1 + bw, w - 1),
                           np.minimum(y1 + bh, h - 1)], 1)
         boxes[0] = [0, 0, w - 1, h - 1]
@@ -381,22 +498,29 @@ def train_roidb(pixel_means):
 
 
 def reset_counts():
+    from nafwebsod_torch.ops import context as ctx
     from nafwebsod_torch.ops import roi_pool as rp
     rp.roi_pool_cuda.launches = 0
     rp.roi_pool_backward_cuda.launches = 0
+    ctx.roi_loop_pool_cuda.launches = 0
 
 
 def read_counts():
+    """Launches of (RoIPoolF forward, RoIPoolF backward, RoILoopPool)."""
+    from nafwebsod_torch.ops import context as ctx
     from nafwebsod_torch.ops import roi_pool as rp
-    return rp.roi_pool_cuda.launches, rp.roi_pool_backward_cuda.launches
+    return (rp.roi_pool_cuda.launches, rp.roi_pool_backward_cuda.launches,
+            ctx.roi_loop_pool_cuda.launches)
 
 
-def check_leaves_moved(model, before):
+def check_leaves_moved(model, before, unmoved=()):
+    """Every head leaf changed and no body leaf did; the head leaves in
+    ``unmoved`` must not have changed either."""
     for key, value in model.state_dict().items():
         moved = not torch.equal(value, before[key])
-        if key.startswith('body.') and moved:
-            raise AssertionError('frozen leaf %s changed' % key)
-        if not key.startswith('body.') and not moved:
+        if (key.startswith('body.') or key in unmoved) and moved:
+            raise AssertionError('leaf %s changed' % key)
+        if not key.startswith('body.') and key not in unmoved and not moved:
             raise AssertionError('trainable leaf %s did not change' % key)
 
 
@@ -430,7 +554,7 @@ def phase_train_flagship():
     reset_counts()
     model, opt_state, records = train_model(roidb, max_iters=4)
     torch.cuda.synchronize()
-    fwd, bwd = read_counts()
+    fwd, bwd, ring = read_counts()
     spec = model.spec
     assert spec.compute_dtype == 'bfloat16' and spec.hidden_dim == 4096
     assert spec.num_classes == 21 and spec.freeze_conv_body
@@ -444,10 +568,10 @@ def phase_train_flagship():
         raise AssertionError('mixup steps: %s' % [r['mixup']
                                                   for r in records])
     check_leaves_moved(model, before)
-    if (fwd, bwd) != (len(records), 0):
-        raise AssertionError('flagship training launched K1 %d times and K3 '
-                             '%d times in %d steps' % (fwd, bwd,
-                                                       len(records)))
+    if (fwd, bwd, ring) != (len(records), 0, 0):
+        raise AssertionError('flagship training launched K1 %d times, K3 %d '
+                             'times and K2 %d times in %d steps' % (
+                                 fwd, bwd, ring, len(records)))
     log_steps('flagship training (2048 padded RoIs, step 1 a mixup blend)',
               records)
     log('flagship training: class_weight_mean %s, K1 launches %d, K3 '
@@ -527,7 +651,7 @@ def phase_train_csc():
     reset_counts()
     model, opt_state, records = train_model(roidb, max_iters=3)
     torch.cuda.synchronize()
-    fwd, bwd = read_counts()
+    fwd, bwd, _ = read_counts()
     spec = model.spec
     assert spec.compute_dtype == 'bfloat16' and spec.hidden_dim == 4096
     assert spec.csc and spec.box_head == 'vgg16_2fc'
@@ -621,6 +745,233 @@ def phase_train_csc():
     if '--profile' in sys.argv:
         profile_train_step('CSC', model, opt_state, roidb)
     return fwd, bwd
+
+
+VOC_CLASSES = ['aeroplane', 'bicycle', 'bird', 'boat', 'bottle', 'bus', 'car',
+               'cat', 'chair', 'cow', 'diningtable', 'dog', 'horse',
+               'motorbike', 'person', 'pottedplant', 'sheep', 'sofa', 'train',
+               'tvmonitor']
+SYNTHETIC_DATASET = 'synthetic_voc_2007_test'
+
+
+def write_voc_dataset(root, pixel_means):
+    """A synthetic VOC2007-test-style dataset under ``root``, from a seed:
+    COCO-json annotations, the devkit's XML annotations and image-set file,
+    and a proposal pkl with ~2000 boxes an image (sides above the roidb's
+    20-pixel floor). Two proposals of each image are its objects. Registers
+    it in the catalog. Returns ({image id: pixels}, proposal file): no
+    image file is written, the pixels are handed over as arrays."""
+    from nafwebsod_torch.data import catalog
+    rng = np.random.RandomState(11)
+    entries = synthetic_roidb(4, pixel_means, min_side=22)
+    voc_root = os.path.join(root, 'devkit', 'VOC2007')
+    os.makedirs(os.path.join(voc_root, 'Annotations'))
+    os.makedirs(os.path.join(voc_root, 'ImageSets', 'Main'))
+    images, annotations, stems, pixels = [], [], [], {}
+    for i, entry in enumerate(entries):
+        image_id = i + 1
+        stem = '%06d' % image_id
+        h, w = entry['image'].shape[:2]
+        images.append({'id': image_id, 'file_name': stem + '.jpg',
+                       'width': w, 'height': h})
+        pixels[image_id] = entry['image']
+        stems.append(stem)
+        xml = ['<annotation>']
+        for row in rng.choice(np.arange(1, NUM_PROPOSALS // 10), 2,
+                              replace=False):
+            x1, y1, x2, y2 = (int(v) for v in entry['boxes'][row])
+            cls = int(rng.randint(len(VOC_CLASSES)))
+            annotations.append({
+                'id': len(annotations) + 1, 'image_id': image_id,
+                'category_id': cls + 1, 'iscrowd': 0,
+                'bbox': [x1, y1, x2 - x1 + 1, y2 - y1 + 1],
+                'area': (x2 - x1 + 1) * (y2 - y1 + 1)})
+            xml.append(          # the devkit's boxes are 1-based
+                '<object><name>%s</name><pose>Unspecified</pose>'
+                '<truncated>0</truncated><difficult>0</difficult><bndbox>'
+                '<xmin>%d</xmin><ymin>%d</ymin><xmax>%d</xmax><ymax>%d</ymax>'
+                '</bndbox></object>' % (VOC_CLASSES[cls], x1 + 1, y1 + 1,
+                                        x2 + 1, y2 + 1))
+        xml.append('</annotation>')
+        with open(os.path.join(voc_root, 'Annotations', stem + '.xml'),
+                  'w') as f:
+            f.write(''.join(xml))
+    with open(os.path.join(voc_root, 'ImageSets', 'Main', 'test.txt'),
+              'w') as f:
+        f.write('\n'.join(stems) + '\n')
+    ann_file = os.path.join(root, 'annotations.json')
+    with open(ann_file, 'w') as f:
+        json.dump({'images': images, 'annotations': annotations,
+                   'categories': [{'id': i + 1, 'name': name}
+                                  for i, name in enumerate(VOC_CLASSES)]}, f)
+    proposal_file = os.path.join(root, 'proposals.pkl')
+    with open(proposal_file, 'wb') as f:
+        pickle.dump({'boxes': [e['boxes'] for e in entries],
+                     'scores': [e['obn_scores'] for e in entries],
+                     'ids': [im['id'] for im in images]}, f, 2)
+    catalog.register_dataset(SYNTHETIC_DATASET, os.path.join(root, 'images'),
+                             ann_file, os.path.join(root, 'devkit'))
+    return pixels, proposal_file
+
+
+def phase_context_inference():
+    """Phase 8. Returns (RoIPoolF launches, RoILoopPool launches) of the
+    counted run."""
+    from nafwebsod_torch.core.config import (CONTEXT, cfg, get_output_dir,
+                                             merge_cfg_from_cfg, reset_cfg)
+    from nafwebsod_torch.data import task_evaluation
+    from nafwebsod_torch.engine import test_engine
+    from nafwebsod_torch.ops import context as ctx
+    from nafwebsod_torch.utils.io import load_object
+
+    reset_cfg()
+    merge_cfg_from_cfg(CONTEXT)
+    with tempfile.TemporaryDirectory() as root:
+        pixels, proposal_file = write_voc_dataset(root, cfg.PIXEL_MEANS)
+        cfg.TEST.DATASETS = (SYNTHETIC_DATASET,)
+        cfg.TEST.PROPOSAL_FILES = (proposal_file,)
+        cfg.OUTPUT_DIR = os.path.join(root, 'out')
+        det_file = os.path.join(
+            get_output_dir((SYNTHETIC_DATASET,), training=False),
+            'detections.pkl')
+
+        # as a user calls it: the model built from the cfg on the card (also
+        # the warm-up of this phase)
+        first = test_engine.run_inference(images=pixels)
+        model = test_engine.initialize_model_from_cfg()
+        spec = model.spec
+        assert spec.is_context and spec.compute_dtype == 'bfloat16'
+        assert spec.hidden_dim == 4096 and spec.num_classes == 21
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        results = test_engine.run_inference(model=model, images=pixels)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        fwd, bwd, ring = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        n = len(pixels)
+        if (fwd, bwd, ring) != (n, 0, 2 * n):
+            raise AssertionError('context inference over %d images launched '
+                                 'K1 %d times, K3 %d times, K2 %d times' % (
+                                     n, fwd, bwd, ring))
+        saved = load_object(det_file)
+        if saved['image_ids'] != sorted(pixels):
+            raise AssertionError('detections.pkl image_ids %s' %
+                                 saved['image_ids'])
+        all_boxes = saved['all_boxes']
+        check_detections(all_boxes, n, int(cfg.TEST.DETECTIONS_PER_IM))
+        res = results[SYNTHETIC_DATASET]
+        for key in ('mAP', 'mean_corloc'):
+            if not (np.isfinite(res[key]) and 0.0 <= res[key] <= 1.0):
+                raise AssertionError('%s = %r' % (key, res[key]))
+        if sorted(res['ap']) != sorted(VOC_CLASSES):
+            raise AssertionError('AP classes %s' % sorted(res['ap']))
+        if first != results:
+            raise AssertionError('two runs from the same seed disagree: '
+                                 '%r != %r' % (first, results))
+        roidb, dataset = test_engine.get_roidb_and_dataset(
+            SYNTHETIC_DATASET, proposal_file)
+        # the evaluator on this dataset: the ground truth as detections
+        # scores 1 in every class that has an object
+        truth = test_engine.empty_results(21, n)
+        present = set()
+        for i, entry in enumerate(roidb):
+            for j in np.unique(entry['gt_classes'][entry['gt_classes'] > 0]):
+                gt = entry['boxes'][entry['gt_classes'] == j]
+                truth[j][i] = np.hstack(
+                    [gt, np.ones((len(gt), 1))]).astype(np.float32)
+                present.add(VOC_CLASSES[j - 1])
+        ideal = task_evaluation.evaluate_all(
+            dataset, truth, None, None, os.path.join(root, 'out', 'truth'),
+            image_ids=saved['image_ids'])[SYNTHETIC_DATASET]
+        for name in VOC_CLASSES:
+            want = float(name in present)
+            if ideal['ap'][name] != want or ideal['corloc'][name] != want:
+                raise AssertionError(
+                    'ground truth as detections: %s AP %r CorLoc %r' % (
+                        name, ideal['ap'][name], ideal['corloc'][name]))
+        log('context inference: %d images through run_inference and the VOC '
+            'evaluator in %.1f ms (host clock, evaluation included), '
+            'proposals per image %s, peak device memory %.0f MiB, '
+            'detections per image %s, mAP %.4f, mean CorLoc %.4f (the '
+            'ground truth as detections: AP and CorLoc 1 in its %d '
+            'classes), K1 launches %d, K2 launches %d' % (
+                n, wall * 1e3,
+                [int((e['gt_classes'] == 0).sum()) for e in roidb], peak,
+                [sum(len(all_boxes[j][i]) for j in range(1, 21))
+                 for i in range(n)], res['mAP'], res['mean_corloc'],
+                len(present), fwd, ring))
+        for entry in roidb:
+            entry['image'] = pixels[entry['id']]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        test_engine.test_net(model, roidb)
+        torch.cuda.synchronize()
+        log('context inference: test_net alone %.2f ms/image (host clock)' %
+            ((time.time() - t0) / n * 1e3))
+
+        # the same run with the ring pool forced to the plain version
+        kernel = ctx.roi_loop_pool_cuda
+        ctx.roi_loop_pool_cuda = lambda *a: ctx.roi_loop_pool_reference(*a)
+        try:
+            test_engine.run_inference(model=model, images=pixels)
+        finally:
+            ctx.roi_loop_pool_cuda = kernel
+        if kernel.launches != 2 * ring:    # test_net alone ran once more
+            raise AssertionError('the plain run launched the kernel')
+        plain_boxes = load_object(det_file)['all_boxes']
+        for j in range(1, 21):
+            for i in range(n):
+                if not np.array_equal(all_boxes[j][i], plain_boxes[j][i]):
+                    raise AssertionError('class %d image %d: kernel and '
+                                         'plain ring pool differ' % (j, i))
+        log('plain ring pool on the card: identical detections')
+        if '--profile' in sys.argv:
+            profile_image(model, roidb[0])
+    return fwd, ring
+
+
+def phase_train_context():
+    """Phase 9. Returns (RoIPoolF launches, RoILoopPool launches)."""
+    from nafwebsod_torch.core.config import (CONTEXT, cfg,
+                                             merge_cfg_from_cfg, reset_cfg)
+    from nafwebsod_torch.engine.test_engine import initialize_model_from_cfg
+    from nafwebsod_torch.engine.train import train_model
+
+    reset_cfg()
+    merge_cfg_from_cfg(CONTEXT)
+    cfg.SOLVER.BASE_LR = TRAIN_BASE_LR
+    roidb = train_roidb(cfg.PIXEL_MEANS)
+    before = {k: v.clone() for k, v in
+              initialize_model_from_cfg().state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    model, opt_state, records = train_model(roidb, max_iters=3)
+    torch.cuda.synchronize()
+    fwd, bwd, ring = read_counts()
+    spec = model.spec
+    assert spec.is_context and spec.compute_dtype == 'bfloat16'
+    assert spec.hidden_dim == 4096 and spec.freeze_conv_body
+    for r in records:
+        for key in ('loss', 'loss_cls'):
+            if not np.isfinite(r[key]):
+                raise AssertionError('iter %d: %s = %r' % (
+                    r['iter'], key, r[key]))
+    # fc8d = FC(frame) - FC(context) through one layer: its bias cancels,
+    # gets a zero gradient, and stays at its initial zeros
+    check_leaves_moved(model, before, unmoved=('head.fc8d_frame.bias',))
+    if (fwd, bwd, ring) != (len(records), 0, 2 * len(records)):
+        raise AssertionError('context training launched K1 %d times, K3 %d '
+                             'times and K2 %d times in %d steps' % (
+                                 fwd, bwd, ring, len(records)))
+    log_steps('context training (2048 padded RoIs, three streams)', records)
+    log('context training: K1 launches %d, K2 launches %d, K3 launches %d'
+        % (fwd, ring, bwd))
+    if '--profile' in sys.argv:
+        profile_train_step('context', model, opt_state, roidb)
+    return fwd, ring
 
 
 def host_ms(fn, reps=10):
@@ -784,16 +1135,24 @@ def main():
         smi = phase_device()
         phase_build()
         k1 = phase_k1()
+        k2 = phase_k2()
         k3 = phase_k3()
         infer_fwd = phase_slice()
         train_fwd = phase_train_flagship()
         csc_fwd, k3['launches'] = phase_train_csc()
+        ctx_infer_fwd, ctx_infer_ring = phase_context_inference()
+        ctx_train_fwd, ctx_train_ring = phase_train_context()
         # each path was driven with the counts set to 0 just before it
-        k1['launches'] = infer_fwd + train_fwd + csc_fwd
-        log('K1 launches by path: inference %d, flagship training %d, CSC '
-            'training %d; K3 launches: CSC training %d' % (
-                infer_fwd, train_fwd, csc_fwd, k3['launches']))
-        kernels.extend([k1, k3])
+        k1['launches'] = (infer_fwd + train_fwd + csc_fwd + ctx_infer_fwd
+                          + ctx_train_fwd)
+        k2['launches'] = ctx_infer_ring + ctx_train_ring
+        log('K1 launches by path: flagship inference %d, flagship training '
+            '%d, CSC training %d, context inference %d, context training '
+            '%d; K2 launches: context inference %d, context training %d; K3 '
+            'launches: CSC training %d' % (
+                infer_fwd, train_fwd, csc_fwd, ctx_infer_fwd, ctx_train_fwd,
+                ctx_infer_ring, ctx_train_ring, k3['launches']))
+        kernels.extend([k1, k2, k3])
     except Exception as exc:  # report the phase that failed, exit non-zero
         import traceback
         traceback.print_exc()

@@ -705,6 +705,25 @@ def dump_cfg():
     return yaml.dump(_to_plain_dict(__C))
 
 
+def dump_cfg_or_none():
+    """The cfg as YAML for a checkpoint or a detections file, or None where
+    PyYAML is not installed (their ``cfg`` entry is optional)."""
+    try:
+        return dump_cfg()
+    except ImportError:
+        return None
+
+
+def get_output_dir(datasets, training=True):
+    """<OUTPUT_DIR>/<train|test>/<dataset>/<MODEL.TYPE>, created."""
+    dataset_name = (':'.join(datasets) if isinstance(datasets, (tuple, list))
+                    else datasets)
+    outdir = os.path.join(__C.OUTPUT_DIR, 'train' if training else 'test',
+                          dataset_name, __C.MODEL.TYPE)
+    os.makedirs(outdir, exist_ok=True)
+    return outdir
+
+
 # ---------------------------------------------------------------------------- #
 # Internals
 # ---------------------------------------------------------------------------- #
@@ -878,6 +897,16 @@ CSC = {
     'WEBLY': {'WEBLY_ON': False},
     'TPU': {'CPG_MAX_GT': 4, 'COMPUTE_DTYPE': 'bfloat16'},
 }
+
+# The values of configs/wsod_families/context_V-16-C5.yaml (the context
+# head: the proposal plus its frame and context rings, the flagship's data
+# and solver recipe). A test holds this dict equal to the YAML file's merge.
+CONTEXT = dict(
+    CSC,
+    FAST_RCNN=dict(FLAGSHIP['FAST_RCNN'],
+                   ROI_BOX_HEAD='wsl_heads.add_VGG16_roi_context_2fc_head'),
+    WSL=dict(FLAGSHIP['WSL'], CONTEXT=True, CONTEXT_RATIO=1.8),
+    TPU=FLAGSHIP['TPU'])
 
 
 # Snapshot defaults for reset_cfg(); keep at module end.

@@ -2,8 +2,9 @@
 package's ``data/minibatch.py`` for the WSL branch, and of
 ``ops/image.py:compute_im_scale`` / ``scaled_size``).
 
-A roidb entry carries its image as an (H, W, 3) uint8 BGR array under
-``'image'`` (dataset loading is not ported yet). Training blobs are numpy
+A roidb entry carries its image under ``'image'`` as an (H, W, 3) uint8 BGR
+array or as a path (``read_image``; ``data/json_dataset.py`` gives paths).
+Training blobs are numpy
 arrays, as in the JAX package: the HSV saturation / exposure jitter, the
 random crop, the random TRAIN.SCALES choice, the top-k proposals with
 their ``+1`` objectness boost projected onto the crop, one-hot image
@@ -17,6 +18,8 @@ with ``in / out`` instead, which differs from cv2 by up to ~127 pixel
 units at non-integer scales. Passing ``s`` as the scale reproduces cv2's
 mapping (to ~1.5e-2 pixel units on float images).
 """
+
+import os
 
 import numpy as np
 import torch
@@ -37,6 +40,26 @@ def compute_im_scale(h, w, target_size, max_size):
 def scaled_size(h, w, im_scale):
     """Resized dims with cv2.resize's dsize rounding (cvRound)."""
     return (int(np.rint(h * im_scale)), int(np.rint(w * im_scale)))
+
+
+def read_image(image):
+    """The (H, W, 3) uint8 BGR pixels of a roidb entry's ``'image'``: the
+    array itself, or the file at that path read with OpenCV (imported
+    here, so that arrays need no OpenCV)."""
+    if not isinstance(image, (str, bytes)) and not hasattr(image,
+                                                            '__fspath__'):
+        return np.asarray(image)
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            'reading the image file {} needs OpenCV (cv2), which is not '
+            'installed; install it or hand the pixels over as an (H, W, 3) '
+            'uint8 BGR array in the entry'.format(image)) from e
+    im = cv2.imread(os.fspath(image))
+    if im is None:
+        raise FileNotFoundError('cannot read image {}'.format(image))
+    return im
 
 
 def prep_im_for_blob(im, pixel_means, target_size, max_size,
@@ -160,7 +183,7 @@ def project_im_rois(im_rois, im_scale, im_crop):
 def get_image_blob(entry, target_size, rng=None):
     """Augment one training image. Returns (im (H, W, 3) float32 numpy,
     im_scale, im_crop)."""
-    im = np.asarray(entry['image'])
+    im = read_image(entry['image'])
     if entry.get('flipped', False):
         im = im[:, ::-1, :]
     rng = rng or np.random

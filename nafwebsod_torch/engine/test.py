@@ -57,8 +57,11 @@ def _forward(model, im, boxes, obn_scores, target_scale, target_max_size):
     rois5, obn, boxes_u, inv_index = _dedup_scaled_rois(
         boxes, obn_scores, im_scale)
     im_in = pad_image_to_bucket(im_blob, cfg.TPU.SIZE_BUCKET_MULTIPLE)
+    # the blob's true extent inside the bucket-padded canvas: the context
+    # head clips its rings there
     out = model.forward_test(im_in[None], torch.from_numpy(rois5).to(device),
-                             torch.from_numpy(obn).to(device))
+                             torch.from_numpy(obn).to(device),
+                             im_hw=im_blob.shape[:2])
     return out['scores'].float(), boxes_u, inv_index, im_scale
 
 

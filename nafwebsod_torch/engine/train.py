@@ -16,7 +16,7 @@ import time
 import numpy as np
 import torch
 
-from nafwebsod_torch.core.config import cfg, dump_cfg
+from nafwebsod_torch.core.config import cfg, dump_cfg_or_none
 from nafwebsod_torch.data.minibatch import (get_minibatch, mixup_blobs,
                                             pad_image_to_bucket)
 from nafwebsod_torch.engine.test_engine import initialize_model_from_cfg
@@ -66,15 +66,6 @@ def build_minibatch(roidb, index, rng):
                 torch.from_numpy(blobs['data'][0]), size_bucket).numpy()[None]
         blobs['mixup'] = True
     return blobs
-
-
-def _cfg_yaml():
-    """The cfg as YAML for the checkpoint, or None where PyYAML is not
-    installed (the checkpoint's ``cfg`` entry is optional)."""
-    try:
-        return dump_cfg()
-    except ImportError:
-        return None
 
 
 def create_solver(model):
@@ -141,5 +132,5 @@ def train_model(roidb, max_iters=None, device=None, output_dir=None,
         os.makedirs(output_dir, exist_ok=True)
         ckpt.save_weights_file(
             os.path.join(output_dir, 'model_final.pkl'), model,
-            cfg_yaml=_cfg_yaml(), momentum=opt_state['momentum'])
+            cfg_yaml=dump_cfg_or_none(), momentum=opt_state['momentum'])
     return model, opt_state, records

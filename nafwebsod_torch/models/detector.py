@@ -1,7 +1,9 @@
 """Model assembly (port of the JAX package's ``models/detector.py``): the
 dilated VGG16-C5 body, RoIPoolF, the 2fc head with or without the noisy
-tower, the WSDDN two-stream outputs and the training losses of three
-branches -- webly (the flagship), CSC and plain CE.
+tower, the three-stream context head (RoIPoolF plus two RoILoopPool ring
+streams), the WSDDN two-stream outputs and the training losses of three
+branches -- webly (the flagship), CSC and plain CE (the plain 2fc head and
+the context head).
 
 ``spec_from_cfg`` raises ``NotImplementedError`` for every other family;
 those are later slices of the port.
@@ -20,7 +22,8 @@ from nafwebsod_torch.utils.device import resolve_device
 
 _BODY = 'VGG16.add_VGG16_conv5_body_origin'
 _HEADS = {'webly_heads.add_VGG16_roi_2fc_noise_head': 'vgg16_2fc_noise',
-          'wsl_heads.add_VGG16_roi_2fc_head': 'vgg16_2fc'}
+          'wsl_heads.add_VGG16_roi_2fc_head': 'vgg16_2fc',
+          'wsl_heads.add_VGG16_roi_context_2fc_head': 'vgg16_context_2fc'}
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
 
@@ -34,6 +37,8 @@ class ModelSpec:
     freeze_conv_body: bool = True
     freeze_at: int = 2
     roi_resolution: int = 7
+    # the context head's ring ratio (WSL.CONTEXT_RATIO)
+    context_ratio: float = 1.8
     webly_on: bool = True
     webly_entropy: bool = True
     mean_loss: bool = True
@@ -56,12 +61,18 @@ class ModelSpec:
     def is_webly(self):
         return self.box_head.endswith('noise') or self.webly_on
 
+    @property
+    def is_context(self):
+        return self.box_head == 'vgg16_context_2fc'
+
 
 def spec_from_cfg(cfg):
-    """The spec of the flagship (noise-aware head, WEBLY.WEBLY_ON) or of the
-    plain 2fc head with or without CPG / CSC; anything else raises."""
+    """The spec of the flagship (noise-aware head, WEBLY.WEBLY_ON), of the
+    plain 2fc head with or without CPG / CSC, or of the context head;
+    anything else raises."""
     head = _HEADS.get(cfg.FAST_RCNN.ROI_BOX_HEAD)
     noise = head == 'vgg16_2fc_noise'
+    context = head == 'vgg16_context_2fc'
     unported = [k for k, on in (
         ('MODEL.CONV_BODY ' + cfg.MODEL.CONV_BODY,
          cfg.MODEL.CONV_BODY != _BODY),
@@ -82,6 +93,8 @@ def spec_from_cfg(cfg):
         ('WSL.CMIL', cfg.WSL.CMIL),
         ('WSL.CPG with the noise-aware head', cfg.WSL.CPG and noise),
         ('WSL.CSC with the noise-aware head', cfg.WSL.CSC and noise),
+        ('WSL.CPG with the context head', cfg.WSL.CPG and context),
+        ('WSL.CSC with the context head', cfg.WSL.CSC and context),
         ('WSL.CENTER_LOSS', cfg.WSL.CENTER_LOSS),
         ('WSL.MIN_ENTROPY_LOSS', cfg.WSL.MIN_ENTROPY_LOSS),
         ('RETINANET.RETINANET_ON', cfg.RETINANET.RETINANET_ON)) if on]
@@ -97,6 +110,7 @@ def spec_from_cfg(cfg):
         freeze_conv_body=cfg.TRAIN.FREEZE_CONV_BODY,
         freeze_at=cfg.TRAIN.FREEZE_AT,
         roi_resolution=cfg.FAST_RCNN.ROI_XFORM_RESOLUTION,
+        context_ratio=cfg.WSL.CONTEXT_RATIO,
         webly_on=cfg.WEBLY.WEBLY_ON,
         webly_entropy=cfg.WEBLY.ENTROPY,
         mean_loss=cfg.WSL.MEAN_LOSS,
@@ -122,7 +136,8 @@ class Detector(nn.Module):
             spec.num_classes,
             roi_feat_dim=512 * spec.roi_resolution ** 2,
             hidden=spec.hidden_dim, device=device,
-            noisy=spec.box_head == 'vgg16_2fc_noise')
+            noisy=spec.box_head == 'vgg16_2fc_noise',
+            context=spec.is_context)
 
     @property
     def device(self):
@@ -141,27 +156,42 @@ class Detector(nn.Module):
         return feat, scale
 
     def _towers(self, image, rois, obn_scores, train=False, generator=None,
-                unfrozen=False):
+                unfrozen=False, im_hw=None):
+        """(fc7 of the clean tower, fc7 of the noisy tower or None). For
+        the context head the first is the tuple of the three streams' fc7.
+        ``im_hw``: the true (h, w) of the image inside a padded canvas; the
+        context head clips its rings there, not at the canvas edge, and
+        the other heads ignore it."""
         spec = self.spec
         feat, scale = self.body_forward(image, unfrozen)
+        if spec.is_context:
+            im_h, im_w = image.shape[1:3] if im_hw is None else im_hw
+            flats = heads.context_pooled_feats(
+                feat[0].contiguous(), rois, obn_scores, scale, im_h, im_w,
+                spec.context_ratio, spec.roi_resolution,
+                spec.freeze_conv_body and not unfrozen)
+            return self.head.context_towers(flats, train, generator), None
         roi_feat = heads.roi_transform(
             feat[0].contiguous(), rois, obn_scores, scale,
             spec.roi_resolution, spec.freeze_conv_body and not unfrozen)
         return self.head.towers(roi_feat, train, generator)
 
     def _outputs(self, fc7_clean, fc7_noisy, valid_mask):
+        if self.spec.is_context:
+            return self.head.wsl_context_outputs(fc7_clean, valid_mask)
         if fc7_noisy is not None:
             return self.head.webly_outputs(fc7_clean, fc7_noisy, valid_mask)
         return self.head.wsl_outputs(fc7_clean, valid_mask)
 
     @torch.no_grad()
-    def forward_test(self, image, rois, obn_scores, valid_mask=None):
+    def forward_test(self, image, rois, obn_scores, valid_mask=None,
+                     im_hw=None):
         """Per-image inference. image (1, H, W, 3); rois (R, 5) float32;
-        obn_scores (R, 1). Returns {'scores': (R, num_classes) with the
-        dummy background column first, 'rois_pred': (R, num_classes - 1)}.
-        """
-        out = self._outputs(*self._towers(image, rois, obn_scores),
-                            valid_mask)
+        obn_scores (R, 1); ``im_hw`` as in ``_towers``. Returns {'scores':
+        (R, num_classes) with the dummy background column first,
+        'rois_pred': (R, num_classes - 1)}."""
+        out = self._outputs(
+            *self._towers(image, rois, obn_scores, im_hw=im_hw), valid_mask)
         return {'scores': heads.add_background_column(out['rois_pred']),
                 'rois_pred': out['rois_pred']}
 
@@ -172,9 +202,10 @@ class Detector(nn.Module):
         mean-subtracted BGR, ``rois`` (R, 5), ``obn_scores`` (R, 1),
         ``labels_oh`` (1, C-1) image-level labels (possibly blended),
         ``valid_mask`` (R,) bool for padded RoIs, ``cur_iter`` a float
-        scalar (it gates CSC). ``generator`` draws the dropout masks; None
-        means no dropout. Returns (total loss, aux dict of losses and
-        metrics)."""
+        scalar (it gates CSC), optionally ``im_hw`` (2,), the image's true
+        extent on its canvas (the context head). ``generator`` draws the
+        dropout masks; None means no dropout. Returns (total loss, aux dict
+        of losses and metrics)."""
         spec = self.spec
         image = batch['image']
         valid = batch.get('valid_mask')
@@ -189,7 +220,7 @@ class Detector(nn.Module):
             image = image.detach().requires_grad_(True)
         fc7_clean, fc7_noisy = self._towers(
             image, batch['rois'], batch['obn_scores'], True, generator,
-            unfrozen=csc_active)
+            unfrozen=csc_active, im_hw=batch.get('im_hw'))
         out = self._outputs(fc7_clean, fc7_noisy, valid)
         return self.wsl_tail_losses(batch, out, image if csc_active else None)
 

@@ -1,6 +1,7 @@
 """WSDDN / noise-aware webly heads (port of the JAX package's
 ``models/heads.py``: the 2fc tower with and without the noisy twin, the
-two-stream outputs and the image-level score).
+three-stream context head, the two-stream outputs and the image-level
+score).
 
 Parameters are float32 masters cast to the activation dtype at each use,
 as in the JAX package. Hidden fc layers run in the activation dtype; the
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nafwebsod_torch.ops import context as context_ops
 from nafwebsod_torch.ops import roi_pool as roi_ops
 
 
@@ -80,6 +82,29 @@ def roi_transform(feat, rois, obn_scores, spatial_scale, resolution=7,
     return pooled.permute(0, 3, 1, 2).reshape(pooled.shape[0], -1)
 
 
+def context_pooled_feats(feat, rois, obn_scores, spatial_scale, im_h, im_w,
+                         context_ratio=1.8, resolution=7, freeze_body=True):
+    """The three flattened RoI feature streams of the context head: the
+    proposal through RoIPoolF, its frame and its context ring through
+    RoILoopPool, each boosted by the objectness and flattened in C*H*W
+    order. feat: (H, W, C); ``im_h``, ``im_w``: the extent the rings are
+    clipped to."""
+    frame, context = context_ops.roi_context(rois, im_h, im_w, context_ratio)
+    pooled = (
+        roi_ops.roi_pool(feat, rois, resolution, resolution, spatial_scale),
+        context_ops.roi_loop_pool(feat, frame, resolution, resolution,
+                                  spatial_scale),
+        context_ops.roi_loop_pool(feat, context, resolution, resolution,
+                                  spatial_scale))
+    outs = []
+    for x in pooled:
+        x = roi_ops.roi_feature_boost(x, obn_scores)
+        if freeze_body:
+            x = x.detach()
+        outs.append(x.permute(0, 3, 1, 2).reshape(x.shape[0], -1))
+    return tuple(outs)
+
+
 def _two_stream(fc8c, fc8d, valid_mask):
     """Softmax over classes x masked softmax over RoIs -> rois_pred."""
     alpha_cls = torch.softmax(fc8c, dim=1)
@@ -98,15 +123,23 @@ class WslHead(nn.Module):
     (``wsl_heads.add_VGG16_roi_2fc_head`` + ``wsl_outputs``). With
     ``noisy`` it is the noise-aware head: a second, noisy tower over the
     same features and the noisy residual logits
-    (``webly_heads.add_VGG16_roi_2fc_noise_head`` + ``webly_outputs``)."""
+    (``webly_heads.add_VGG16_roi_2fc_noise_head`` + ``webly_outputs``).
+    With ``context`` it is the context head
+    (``wsl_heads.add_VGG16_roi_context_2fc_head`` +
+    ``add_wsl_context_outputs``): the one tower runs over three feature
+    streams, and the detection stream's layer is ``fc8d_frame`` (there is
+    no ``fc8d``)."""
 
     def __init__(self, num_classes, roi_feat_dim=512 * 7 * 7, hidden=4096,
-                 device=None, noisy=True):
+                 device=None, noisy=True, context=False):
         super().__init__()
         c = num_classes - 1
         self.clean = FcTower(roi_feat_dim, hidden, device)
         self.fc8c = nn.Linear(hidden, c, device=device)
-        self.fc8d = nn.Linear(hidden, c, device=device)
+        if context:
+            self.fc8d_frame = nn.Linear(hidden, c, device=device)
+        else:
+            self.fc8d = nn.Linear(hidden, c, device=device)
         if noisy:
             self.noisy = FcTower(roi_feat_dim, hidden, device)
             self.noisy_fc8c = nn.Linear(hidden, c, device=device)
@@ -129,6 +162,24 @@ class WslHead(nn.Module):
         if self.noisy is None:
             return clean, None
         return clean, self.noisy(roi_feat, train, generator)
+
+    def context_towers(self, flats, train=False, generator=None):
+        """fc7 of the plain, the frame and the context stream: the same
+        fc6/fc7 weights over each of ``context_pooled_feats``' streams, so
+        their gradient sums the three uses. The dropout masks are drawn
+        stream by stream, in that order."""
+        return tuple(self.clean(x, train, generator) for x in flats)
+
+    def wsl_context_outputs(self, fc7s, valid_mask=None):
+        """fc8c on the plain stream; fc8d = FC(frame) - FC(context) through
+        the one ``fc8d_frame`` layer (its bias cancels and gets a zero
+        gradient)."""
+        fc7, fc7_frame, fc7_context = fc7s
+        fc8c = fc(fc7, self.fc8c, torch.float32)
+        fc8d = (fc(fc7_frame, self.fc8d_frame, torch.float32)
+                - fc(fc7_context, self.fc8d_frame, torch.float32))
+        return {'fc8c': fc8c, 'fc8d': fc8d,
+                'rois_pred': _two_stream(fc8c, fc8d, valid_mask)}
 
     def wsl_outputs(self, fc7, valid_mask=None):
         fc8c = fc(fc7, self.fc8c, torch.float32)

@@ -1,6 +1,7 @@
 // Device functions shared by the RoIPoolF forward (roi_pool.cu) and backward
-// (roi_pool_bwd.cu): the rounding of RoI coordinates and the integer bin
-// edges, so both kernels see exactly the same bins.
+// (roi_pool_bwd.cu) and the RoILoopPool forward (roi_loop_pool.cu): the
+// rounding of RoI coordinates and the integer bin edges, so all kernels see
+// exactly the same bins.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -60,63 +60,110 @@ def _bin_edges(lo, extent, pooled, size):
     return start.clamp(0, size), end.clamp(0, size)
 
 
-def roi_pool_reference(feat, rois, pooled_h=7, pooled_w=7,
-                       spatial_scale=0.125, chunk=16):
-    """Plain-PyTorch RoIPoolF (mirrors the JAX ``roi_pool_xla``): a masked
-    row max over each bin's rows, then a masked column max, over chunks of
-    ``chunk`` RoIs. Empty bins (and any non-finite max) give 0.
-
-    The gather windows are as tall and wide as this call's largest bin.
-    ``roi_pool_xla`` caps them at ceil(H / PH) + 2 rows (likewise for
-    columns), which holds for RoIs clipped to the image; past that the two
-    differ and this version (like the CUDA kernel) keeps the exact
-    definition."""
-    h, w, c = feat.shape
-    q = _round_half_away(rois[:, 1:5].float() * spatial_scale).long()
-    x1, y1, x2, y2 = q.unbind(1)
-    hs, he = _bin_edges(y1, (y2 - y1 + 1).clamp(min=1), pooled_h, h)
-    ws, we = _bin_edges(x1, (x2 - x1 + 1).clamp(min=1), pooled_w, w)
-    if rois.shape[0] == 0:
-        return feat.new_zeros((0, pooled_h, pooled_w, c))
+def _bin_max(feat, hs, he, ws, we, inner=None, chunk=16):
+    """The max of every bin, -inf for an empty one: a masked row max over
+    each bin's rows, then a masked column max, over chunks of ``chunk``
+    RoIs. hs, he: (R, PH) row edges; ws, we: (R, PW) column edges; returns
+    (R, PH, PW, C). With ``inner`` = (ix1, iy1, ix2, iy2), each (R,), the
+    cells with iy1 < y < iy2 and ix1 < x < ix2 are left out (RoILoopPool's
+    ring). The gather windows are as tall and wide as this call's largest
+    bin."""
+    h, w, _ = feat.shape
     mbh = max(int((he - hs).max()), 1)
     mbw = max(int((we - ws).max()), 1)
     dy = torch.arange(mbh, device=feat.device)
     dx = torch.arange(mbw, device=feat.device)
+    xcoord = torch.arange(w, device=feat.device)
     neg = torch.tensor(-math.inf, dtype=feat.dtype, device=feat.device)
     outs = []
-    for i in range(0, rois.shape[0], chunk):
+    for i in range(0, hs.shape[0], chunk):
         sl = slice(i, i + chunk)
         ys = hs[sl, :, None] + dy                                 # (r,PH,MBH)
         rows = feat[ys.clamp(0, h - 1)]                   # (r,PH,MBH,W,C)
-        rows = torch.where((ys < he[sl, :, None])[..., None, None],
-                           rows, neg)
-        rowmax = rows.amax(dim=2)                             # (r,PH,W,C)
+        keep = (ys < he[sl, :, None])[..., None]            # (r,PH,MBH,1)
+        if inner is not None:
+            ix1, iy1, ix2, iy2 = (v[sl, None, None] for v in inner)
+            inside = (((ys > iy1) & (ys < iy2))[..., None] &
+                      ((xcoord > ix1) & (xcoord < ix2))[:, :, None, :])
+            keep = keep & ~inside                           # (r,PH,MBH,W)
+        rowmax = torch.where(keep[..., None], rows, neg).amax(dim=2)
         xs = ws[sl, :, None] + dx                                 # (r,PW,MBW)
         ridx = torch.arange(xs.shape[0], device=feat.device)[:, None, None]
         cols = rowmax[ridx, :, xs.clamp(0, w - 1)]        # (r,PW,MBW,PH,C)
         cols = torch.where((xs < we[sl, :, None])[..., None, None],
                            cols, neg)
-        out = cols.amax(dim=2).permute(0, 2, 1, 3)            # (r,PH,PW,C)
-        outs.append(torch.where(torch.isfinite(out), out,
-                                torch.zeros((), dtype=out.dtype,
-                                            device=out.device)))
+        outs.append(cols.amax(dim=2).permute(0, 2, 1, 3))     # (r,PH,PW,C)
     return torch.cat(outs)
 
 
-_KERNELS = {torch.float32: 'roi_pool_fwd_f32',
-            torch.bfloat16: 'roi_pool_fwd_bf16'}
+def roi_pool_reference(feat, rois, pooled_h=7, pooled_w=7,
+                       spatial_scale=0.125, chunk=16):
+    """Plain-PyTorch RoIPoolF (mirrors the JAX ``roi_pool_xla``). Empty bins
+    (and any non-finite max) give 0.
+
+    ``roi_pool_xla`` caps its gather windows at ceil(H / PH) + 2 rows
+    (likewise for columns), which holds for RoIs clipped to the image; past
+    that the two differ and this version (like the CUDA kernel) keeps the
+    exact definition."""
+    h, w, c = feat.shape
+    if rois.shape[0] == 0:
+        return feat.new_zeros((0, pooled_h, pooled_w, c))
+    q = _round_half_away(rois[:, 1:5].float() * spatial_scale).long()
+    x1, y1, x2, y2 = q.unbind(1)
+    hs, he = _bin_edges(y1, (y2 - y1 + 1).clamp(min=1), pooled_h, h)
+    ws, we = _bin_edges(x1, (x2 - x1 + 1).clamp(min=1), pooled_w, w)
+    out = _bin_max(feat, hs, he, ws, we, chunk=chunk)
+    return torch.where(torch.isfinite(out), out, out.new_zeros(()))
+
+
+_SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 +
              [ctypes.c_float, ctypes.c_void_p])
 
 
-def _kernel_fn(dtype):
-    lib = _build.load('roi_pool')
-    fn = getattr(lib, _KERNELS[dtype])
+def launch_pool_forward(name, feat, rois, roi_cols, pooled_h, pooled_w,
+                        spatial_scale):
+    """Check the arguments and launch the forward kernel of
+    ``csrc/<name>.cu`` (``<name>_fwd_f32`` / ``<name>_fwd_bf16``) on the
+    current stream. feat: (H, W, C) contiguous float32 or bfloat16 CUDA
+    tensor; rois: (R, roi_cols) contiguous float32 on the same device.
+    Returns (out (R, pooled_h, pooled_w, C) in feat's type, whether a
+    kernel was launched: not for an empty output)."""
+    if not feat.is_cuda:
+        raise ValueError('{}_cuda needs a CUDA tensor'.format(name))
+    if feat.dtype not in _SUFFIX:
+        raise ValueError('{}_cuda: feature dtype {} is not float32 or '
+                         'bfloat16'.format(name, feat.dtype))
+    if feat.dim() != 3 or not feat.is_contiguous():
+        raise ValueError('{}_cuda: feat must be a contiguous (H, W, C) '
+                         'map, got shape {} strides {}'.format(
+                             name, tuple(feat.shape), feat.stride()))
+    if (rois.device != feat.device or rois.dtype != torch.float32
+            or rois.dim() != 2 or rois.shape[1] != roi_cols
+            or not rois.is_contiguous()):
+        raise ValueError('{}_cuda: rois must be a contiguous (R, {}) '
+                         'float32 tensor on {}'.format(name, roi_cols,
+                                                       feat.device))
+    h, w, c = feat.shape
+    r = rois.shape[0]
+    out = torch.empty((r, pooled_h, pooled_w, c), dtype=feat.dtype,
+                      device=feat.device)
+    if r == 0 or c == 0:
+        return out, False
+    lib = _build.load(name)
+    fn = getattr(lib, '{}_fwd_{}'.format(name, _SUFFIX[feat.dtype]))
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    lib.roi_pool_error_string.argtypes = [ctypes.c_int]
-    lib.roi_pool_error_string.restype = ctypes.c_char_p
-    return fn, lib.roi_pool_error_string
+    err_str = getattr(lib, name + '_error_string')
+    err_str.argtypes = [ctypes.c_int]
+    err_str.restype = ctypes.c_char_p
+    stream = torch.cuda.current_stream(feat.device).cuda_stream
+    rc = fn(feat.data_ptr(), rois.data_ptr(), out.data_ptr(), h, w, c, r,
+            pooled_h, pooled_w, spatial_scale, stream)
+    if rc != 0:
+        raise RuntimeError('{} CUDA launch failed: {}'.format(
+            name, err_str(rc).decode()))
+    return out, True
 
 
 def roi_pool_cuda(feat, rois, pooled_h=7, pooled_w=7, spatial_scale=0.125):
@@ -125,34 +172,9 @@ def roi_pool_cuda(feat, rois, pooled_h=7, pooled_w=7, spatial_scale=0.125):
     feat: (H, W, C) contiguous float32 or bfloat16 CUDA tensor; rois: (R, 5)
     contiguous float32 on the same device. ``roi_pool_cuda.launches``
     counts the kernel launches."""
-    if not feat.is_cuda:
-        raise ValueError('roi_pool_cuda needs a CUDA tensor')
-    if feat.dtype not in _KERNELS:
-        raise ValueError('roi_pool_cuda: feature dtype {} is not float32 or '
-                         'bfloat16'.format(feat.dtype))
-    if feat.dim() != 3 or not feat.is_contiguous():
-        raise ValueError('roi_pool_cuda: feat must be a contiguous (H, W, C) '
-                         'map, got shape {} strides {}'.format(
-                             tuple(feat.shape), feat.stride()))
-    if (rois.device != feat.device or rois.dtype != torch.float32
-            or rois.dim() != 2 or rois.shape[1] != 5
-            or not rois.is_contiguous()):
-        raise ValueError('roi_pool_cuda: rois must be a contiguous (R, 5) '
-                         'float32 tensor on {}'.format(feat.device))
-    h, w, c = feat.shape
-    r = rois.shape[0]
-    out = torch.empty((r, pooled_h, pooled_w, c), dtype=feat.dtype,
-                      device=feat.device)
-    if r == 0 or c == 0:
-        return out
-    fn, err_str = _kernel_fn(feat.dtype)
-    stream = torch.cuda.current_stream(feat.device).cuda_stream
-    rc = fn(feat.data_ptr(), rois.data_ptr(), out.data_ptr(), h, w, c, r,
-            pooled_h, pooled_w, spatial_scale, stream)
-    if rc != 0:
-        raise RuntimeError('roi_pool CUDA launch failed: {}'.format(
-            err_str(rc).decode()))
-    roi_pool_cuda.launches += 1
+    out, launched = launch_pool_forward('roi_pool', feat, rois, 5, pooled_h,
+                                        pooled_w, spatial_scale)
+    roi_pool_cuda.launches += launched
     return out
 
 
@@ -248,15 +270,14 @@ def roi_pool_backward_reference(feat, rois, g, pooled_h=7, pooled_w=7,
     return dfeat.view(n_seeds, h, w, c)
 
 
-_BWD_SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 +
                  [ctypes.c_float, ctypes.c_void_p])
 
 
 def _bwd_kernel_fn(feat_dtype, g_dtype):
     lib = _build.load('roi_pool_bwd')
-    fn = getattr(lib, 'roi_pool_bwd_{}_{}'.format(_BWD_SUFFIX[feat_dtype],
-                                                  _BWD_SUFFIX[g_dtype]))
+    fn = getattr(lib, 'roi_pool_bwd_{}_{}'.format(_SUFFIX[feat_dtype],
+                                                  _SUFFIX[g_dtype]))
     fn.argtypes = _BWD_ARGTYPES
     fn.restype = ctypes.c_int
     lib.roi_pool_bwd_error_string.argtypes = [ctypes.c_int]
@@ -276,7 +297,7 @@ def roi_pool_backward_cuda(feat, rois, g, pooled_h=7, pooled_w=7,
     kernel launches."""
     if not feat.is_cuda:
         raise ValueError('roi_pool_backward_cuda needs a CUDA tensor')
-    if feat.dtype not in _BWD_SUFFIX or g.dtype not in _BWD_SUFFIX:
+    if feat.dtype not in _SUFFIX or g.dtype not in _SUFFIX:
         raise ValueError('roi_pool_backward_cuda: feature dtype {} and '
                          'cotangent dtype {} must be float32 or bfloat16'
                          .format(feat.dtype, g.dtype))

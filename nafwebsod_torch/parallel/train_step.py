@@ -11,14 +11,17 @@ import torch
 from nafwebsod_torch.solver import sgd
 from nafwebsod_torch.utils.bridge import named_blobs
 
-BATCH_KEYS = ('image', 'rois', 'obn_scores', 'labels_oh', 'valid_mask')
+BATCH_KEYS = ('image', 'rois', 'obn_scores', 'labels_oh', 'valid_mask',
+              'im_hw')
 
 
 def stack_minibatches(blob_list, size_bucket=None):
     """List of per-image minibatch blob dicts -> one batch dict of numpy
     arrays with a leading image axis. Images are zero-padded to the
     largest height and width (rounded up to ``size_bucket``); ``image``
-    comes out as (B, 1, H, W, 3), the per-image forward's rank."""
+    comes out as (B, 1, H, W, 3), the per-image forward's rank; ``im_hw``
+    keeps each image's own extent on that canvas (the context head clips
+    its rings there)."""
     ims = [b['data'][0] for b in blob_list]
     h = max(im.shape[0] for im in ims)
     w = max(im.shape[1] for im in ims)
@@ -36,6 +39,7 @@ def stack_minibatches(blob_list, size_bucket=None):
         'labels_oh': np.stack(
             [b['labels_oh'] for b in blob_list]).astype(np.float32),
         'valid_mask': np.stack([b['valid_mask'] for b in blob_list]),
+        'im_hw': np.stack([b['im_hw'] for b in blob_list]).astype(np.float32),
     }
     return batch
 

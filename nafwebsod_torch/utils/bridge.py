@@ -22,19 +22,11 @@ _HEAD_LAYERS = {
     'head.noisy_fc8c': 'noisy_fc8c',
     'head.noisy_fc8d': 'noisy_fc8d',
 }
+# the context head's detection layer, in place of fc8d
+_CONTEXT_LAYERS = {'head.fc8d_frame': 'fc8d_frame'}
 
 
-def blob_names(model=None):
-    """{Detector state-dict key: reference blob name}: of the noise-aware
-    model, or of ``model``'s own parameters (the plain 2fc head has no
-    noisy tower)."""
-    layers = {'body.' + name: name
-              for stage in VGG16_STAGES for name, _, _ in stage}
-    layers.update(_HEAD_LAYERS)
-    if model is not None:
-        have = {key.rsplit('.', 1)[0] for key in model.state_dict()}
-        layers = {path: blob for path, blob in layers.items()
-                  if path in have}
+def _layer_names(layers):
     names = {}
     for path, blob in layers.items():
         names[path + '.weight'] = blob + '_w'
@@ -42,12 +34,32 @@ def blob_names(model=None):
     return names
 
 
+def _body_layers():
+    return {'body.' + name: name
+            for stage in VGG16_STAGES for name, _, _ in stage}
+
+
+def blob_names(model=None):
+    """{Detector state-dict key: reference blob name}: of the noise-aware
+    model, or of ``model``'s own parameters (the plain 2fc head has no
+    noisy tower; the context head has ``fc8d_frame`` and no ``fc8d``)."""
+    if model is None:
+        return _layer_names({**_body_layers(), **_HEAD_LAYERS})
+    have = {key.rsplit('.', 1)[0] for key in model.state_dict()}
+    return _layer_names({
+        path: blob for path, blob in {**_body_layers(), **_HEAD_LAYERS,
+                                      **_CONTEXT_LAYERS}.items()
+        if path in have})
+
+
 def params_from_jax(params):
     """A Detector state dict from a JAX-package parameter dict (numpy
     arrays: HWIO convs, (in, out) FCs), for the blobs ``params`` holds. The
     port's layouts are the reference's: OIHW convs, (out, in) FCs."""
     state = {}
-    for path, blob in blob_names().items():
+    names = _layer_names({**_body_layers(), **_HEAD_LAYERS,
+                          **_CONTEXT_LAYERS})
+    for path, blob in names.items():
         if blob not in params:
             continue
         arr = np.asarray(params[blob], np.float32)

@@ -5,8 +5,8 @@ tests/conftest.py:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the forward bitwise (max pooling selects an element, it rounds
-nothing); the backward bitwise with integer cotangents (small integers sum
+Tolerances: the forwards (RoIPoolF, RoILoopPool) bitwise (max pooling
+selects an element, it rounds nothing); the backward bitwise with integer cotangents (small integers sum
 exactly in float32 in any order, so this checks the routing) and within
 1e-5 |x| + 1e-6 sum|g| per cell with normal cotangents (both sides add
 with float atomics, in an order that changes from run to run; the sum of
@@ -18,6 +18,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from nafwebsod_torch.ops import context as ctx
 from nafwebsod_torch.ops import roi_pool as rp
 
 pytestmark = pytest.mark.cuda
@@ -195,3 +196,94 @@ def test_max_pool_backward_routes_to_the_first_max_on_the_card(card, stride,
     out.backward(g)
     want = _first_max_pool_backward(x.detach(), g, stride)
     assert torch.equal(x.grad, want)
+
+
+# (batch, outer box, inner box) rows a proposal never gives roi_context.
+RING_EDGE_ROIS = [
+    [0, 16, 16, 170, 170, 16, 16, 170, 170],    # inner box == outer box
+    [0, 16, 16, 170, 170, 80, 80, 80, 80],      # a one-cell inner box
+    [0, 16, 16, 170, 170, 80, 80, 88, 88],      # two cells wide: no interior
+    [0, 16, 16, 170, 170, 40, 40, 120, 120],    # a proper ring
+    [0, 0, 0, 184, 184, 0, 0, 184, 184],        # only the border cells
+    [0, 150, 150, 700, 900, 200, 200, 600, 800],    # outer box past the map
+    [0, 4000, 4000, 5000, 5000, 4200, 4200, 4800, 4800],    # off the map
+    [0, 100, 100, 60, 60, 90, 90, 70, 70],      # inverted: extents floor at 1
+    [0, 0, 0, 0, 0, 0, 0, 0, 0],                # a padded row
+]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('stream', ['frame', 'context'])
+@pytest.mark.parametrize('kind', ['relu', 'signed', 'negative', 'non_finite'])
+@pytest.mark.parametrize('h,w,c,r', [(87, 119, 512, 2048),
+                                     (24, 24, 200, 64), (5, 6, 1, 7)])
+def test_roi_loop_pool_kernel_matches_plain_version(card, dtype, stream, kind,
+                                                    h, w, c, r):
+    rng = np.random.RandomState(h * w + c)
+    feat = rng.randn(h, w, c).astype(np.float32)
+    if kind == 'relu':
+        feat = np.maximum(feat, 0)
+    elif kind == 'negative':
+        feat = -np.abs(feat) - 1
+    elif kind == 'non_finite':
+        feat[h // 2, w // 2, 0] = np.nan
+        feat[h // 3, w // 3, c // 2] = np.inf
+        feat[1, 2, c - 1] = -np.inf
+    feat = torch.from_numpy(feat).to(card, dtype)
+    proposals = torch.from_numpy(_rois(rng, r, 8 * w, 8 * h)).to(card)
+    rois9 = dict(zip(('frame', 'context'), ctx.roi_context(
+        proposals, 8 * h, 8 * w, 1.8)))[stream]
+    rois9 = torch.cat([rois9, torch.tensor(RING_EDGE_ROIS, device=card)])
+    before = ctx.roi_loop_pool_cuda.launches
+    got = ctx.roi_loop_pool(feat, rois9.contiguous())
+    assert ctx.roi_loop_pool_cuda.launches == before + 1
+    want = ctx.roi_loop_pool_reference(feat, rois9)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (rois9.shape[0], 7, 7, c)
+    assert torch.equal(got, want)
+    assert torch.isfinite(got).all() and (got >= 0).all()
+    if kind == 'negative':
+        assert not got.any()
+    if kind == 'relu':
+        assert got.any()
+
+
+def test_roi_loop_pool_kernel_rejects_what_it_does_not_take(card):
+    rois9 = torch.zeros(3, 9, device=card)
+    feat = torch.zeros(4, 4, 8, device=card)
+    with pytest.raises(ValueError):
+        ctx.roi_loop_pool_cuda(feat.half(), rois9)
+    with pytest.raises(ValueError):
+        ctx.roi_loop_pool_cuda(feat.transpose(0, 1), rois9)
+    with pytest.raises(ValueError):
+        ctx.roi_loop_pool_cuda(feat, rois9[:, :5].contiguous())
+    with pytest.raises(ValueError):
+        ctx.roi_loop_pool_cuda(feat, rois9.cpu())
+    before = ctx.roi_loop_pool_cuda.launches
+    assert ctx.roi_loop_pool_cuda(feat, rois9[:0]).shape == (0, 7, 7, 8)
+    assert ctx.roi_loop_pool_cuda.launches == before
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        ctx.roi_loop_pool(feat.clone().requires_grad_(True), rois9)
+
+
+def test_context_streams_on_the_card_equal_the_plain_versions(card):
+    """heads.context_pooled_feats: K1 once and K2 twice, bitwise the plain
+    versions' streams; padded all-zero rows give no NaN."""
+    from nafwebsod_torch.models import heads
+    rng = np.random.RandomState(3)
+    feat = torch.relu(torch.from_numpy(
+        rng.randn(40, 52, 64).astype(np.float32))).to(card, torch.bfloat16)
+    rois = _rois(rng, 96, 400, 310)
+    rois[-8:] = 0
+    rois = torch.from_numpy(rois).to(card)
+    obn = torch.from_numpy(rng.rand(96, 1).astype(np.float32) + 1).to(card)
+    k1, k2 = rp.roi_pool_cuda.launches, ctx.roi_loop_pool_cuda.launches
+    got = heads.context_pooled_feats(feat, rois, obn, 0.125, 310, 400)
+    assert rp.roi_pool_cuda.launches == k1 + 1
+    assert ctx.roi_loop_pool_cuda.launches == k2 + 2
+    want = heads.context_pooled_feats(feat.cpu(), rois.cpu(), obn.cpu(),
+                                      0.125, 310, 400)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g.cpu(), w)

@@ -42,12 +42,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(' ', 1)
-    assert int(count) >= 27
+    assert int(count) >= 36      # the data and evaluator modules too
     assert bad.strip() == '[]', proc.stdout
 
 
-def test_chip_smoke_imports_nothing_of_jax():
-    with open(os.path.join(REPO, 'chip_smoke.py')) as f:
+def _imported_modules(*path):
+    with open(os.path.join(REPO, *path)) as f:
         tree = ast.parse(f.read())
     imported = set()
     for node in ast.walk(tree):
@@ -55,7 +55,20 @@ def test_chip_smoke_imports_nothing_of_jax():
             imported.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             imported.add(node.module)
+    return imported
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    imported = _imported_modules('chip_smoke.py')
     assert 'nafwebsod_torch.ops' in imported
+    assert 'nafwebsod_torch.engine' in imported
+    assert not [m for m in imported
+                if m.split('.')[0] in ('jax', 'jaxlib', 'nafwebsod_tpu')]
+
+
+def test_the_test_cli_imports_nothing_of_jax():
+    imported = _imported_modules('tools', 'test_net_torch.py')
+    assert 'nafwebsod_torch.engine' in imported
     assert not [m for m in imported
                 if m.split('.')[0] in ('jax', 'jaxlib', 'nafwebsod_tpu')]
 
