@@ -49,10 +49,31 @@ Phases, each of which fails the run with a non-zero exit:
   9. context training at full width: 3 steps of train_model; finite
      losses, fc6, fc7, fc8c and fc8d_frame's weight moved (its bias
      cancels in fc8d and must not move), no body leaf moved, RoIPoolF once
-     and RoILoopPool twice per step, the backward kernel never.
+     and RoILoopPool twice per step, the backward kernel never;
+ 10. the seg family's fcn mask head (core.config.SEG_FCN) at full width:
+     inference through test_net -> im_detect_all -> forward_masks (RoIAlign
+     on the <= 100 final boxes of each image) -> segm_results, one RLE per
+     detection, each mask inside its expanded box and the image, the RLEs
+     in detections.pkl, identical masks with RoIAlign forced to its plain
+     version; then 3 training steps (RoIPoolF and RoIAlign once per step on
+     the 2048 padded RoIs): finite losses, mask_loss_cls present, the
+     gradient in every mask leaf;
+ 11. RoIAlign as the box transform (FAST_RCNN.ROI_XFORM_METHOD RoIAlign on
+     the plain 2fc head): one image's scores finite and equal to the
+     plain-version rerun;
+ 12. the seg family's deeplab mask head (core.config.SEG, the YAML's):
+     inference through test_net -> forward_deeplab_masks ->
+     segm_results_deeplab, and 3 training steps with the CPG seeds (the
+     backward kernel once per seed), the seed loss and the dense-CRF
+     consistency loss finite, every mask leaf moved.
+The RoIAlign kernel is held against its plain version in phase 3 too: at
+14x14 and 7x7 bins with 2x2 samples, float32 and bfloat16, bitwise, on the
+2048 proposals plus edge rows (samples at exactly -1, H and W, boxes past
+and off the map, a sub-cell box, padded all-zero rows) and on a map with
+NaN and infinite cells (NaN in the same places).
 ``--profile`` adds stage times and torch.profiler's kernel tables for one
 image, one flagship train step and one CSC train step, one context image
-and one context train step.
+and one context train step, one SEG_FCN image and one SEG_FCN train step.
 The last lines are the kernel table (JSON), the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result (JSON).
 Imports nothing of JAX. Needs one card; exits non-zero without one.
@@ -118,7 +139,7 @@ def phase_device():
 def phase_build():
     from nafwebsod_torch.ops import _build
     t0 = time.time()
-    names = ['roi_pool', 'roi_pool_bwd', 'roi_loop_pool']
+    names = ['roi_pool', 'roi_pool_bwd', 'roi_loop_pool', 'roi_align']
     reports = _build.build(names)
     for name, report in reports.items():
         log('nvcc', name, ':', report.strip().replace('\n', ' | '))
@@ -376,6 +397,111 @@ def phase_k2():
             'ms_frame_rois': frame[1], 'ms_context_rois': context[1]}
 
 
+# Edge rows for RoIAlign on the (87, 119) map of a 688x917 blob at scale
+# 1/8 with 2 x 2 samples a bin. A box of 56 (14 bins) or 28 (7 bins) cells
+# has a bin of 4 cells and samples at start + 4 p + 1 and + 3: exact in
+# float32, so a sample can sit at exactly -1, 87 or 119.
+K4_EDGE_ROIS = [
+    [0, 800, 600, 1200, 900],       # past the right and the bottom edge
+    [0, -16, 256, 432, 704],        # 14 bins: x from -1, y to H, exactly
+    [0, 512, -16, 960, 432],        # 14 bins: x to W, y from -1, exactly
+    [0, -16, 480, 208, 704],        # 7 bins: x from -1, y to H, exactly
+    [0, 736, -16, 960, 208],        # 7 bins: x to W, y from -1, exactly
+    [0, 100.3, 100.7, 101.1, 102.9],    # inside one cell: extents floored at 1
+    [0, 400, 300, 200, 100],        # inverted: extents floored at 1
+    [0, 2000, 2000, 2100, 2100],    # off the map: every sample counts 0
+    [0, -500, -500, -100, -100],    # off the map on the other side
+    [0, 0, 0, 916, 687],            # the image
+    [0, 0, 0, 0, 0], [0, 0, 0, 0, 0],   # padded rows of a training batch
+]
+
+
+def align_bound_ms(feat, rois, out, sr):
+    """The larger of bytes / memory rate (the map and the RoIs read once,
+    the float32 output written once) and operations / the float32 rate: per
+    output and sample 8 products and 3 sums for the four corners, the
+    validity product and the accumulation, and one division per output."""
+    nbytes = (feat.numel() * feat.element_size() + rois.numel() * 4
+              + out.numel() * out.element_size())
+    ops = out.numel() * (13 * sr * sr + 1)
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
+                                   else 'operations')
+
+
+def same_with_nans(got, want):
+    """Equal where both are numbers, NaN in the same places."""
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan], want[~nan]))
+
+
+def phase_k4():
+    """The RoIAlign kernel against its plain version."""
+    from nafwebsod_torch.ops import roi_pool as rp
+    rng = np.random.RandomState(0)
+    rois = torch.cat([
+        torch.from_numpy(k1_rois(rng, 2048, 917, 688)),
+        torch.tensor(K4_EDGE_ROIS, dtype=torch.float32)]).cuda()
+    signed = torch.from_numpy(
+        rng.randn(87, 119, 512).astype(np.float32)).cuda()
+    non_finite = signed.clone()
+    non_finite[40, 60, 7] = float('nan')    # a NaN or an infinity under a
+    non_finite[20, 30, 9] = float('inf')    # zero weight gives NaN in both
+    non_finite[86, 118, 11] = float('-inf')
+    maps = {'relu': torch.relu(signed), 'signed': signed,
+            'non-finite': non_finite}
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for res in (14, 7):
+            for kind, base in maps.items():
+                feat = base.to(dtype)
+                got = rp.roi_align_cuda(feat, rois, res, res, 0.125, 2)
+                want = rp.roi_align_reference(feat, rois, res, res, 0.125, 2)
+                torch.cuda.synchronize()
+                if got.dtype != torch.float32 or not same_with_nans(got,
+                                                                    want):
+                    raise AssertionError(
+                        'K4 %s %dx%d, %s map differs from the plain version: '
+                        'max abs err %g' % (
+                            dtype, res, res, kind, torch.nan_to_num(
+                                got - want, nan=float('inf')).abs().max()))
+                if kind != 'non-finite' and not torch.isfinite(got).all():
+                    raise AssertionError('K4 gave a non-finite value on a '
+                                         'finite map (%s)' % kind)
+            feat = maps['relu'].to(dtype)
+            got = rp.roi_align_cuda(feat, rois, res, res, 0.125, 2)
+            want = rp.roi_align_reference(feat, rois, res, res, 0.125, 2)
+            n_edge = len(K4_EDGE_ROIS)
+            if got[-n_edge + 7:-n_edge + 9].any():
+                raise AssertionError('K4: a box off the map must pool to 0')
+            err = (got - want).abs().max().item()
+            ms = time_ms(lambda: rp.roi_align_cuda(feat, rois, res, res,
+                                                   0.125, 2), 50)
+            plain_ms = time_ms(lambda: rp.roi_align_reference(
+                feat, rois, res, res, 0.125, 2), 2)
+            bound_ms, bound_by = align_bound_ms(feat, rois, got, 2)
+            log('K4 %s (87,119,512) R=%d %dx%d sr=2: equal on the relu, '
+                'signed and non-finite maps, kernel %.4f ms, plain %.4f ms, '
+                'bound %.4f ms (%s)' % (
+                    str(dtype), rois.shape[0], res, res, ms, plain_ms,
+                    bound_ms, bound_by))
+            if dtype == torch.bfloat16 and res == 14:  # the mask head's call
+                row = {'name': 'roi_align_fwd', 'route': 'cuda',
+                       'source': 'nafwebsod_torch/ops/csrc/roi_align.cu',
+                       'replaces':
+                           'nafwebsod_tpu/ops/pallas/roi_align_pallas.py:132',
+                       'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                       'bound_ms': bound_ms, 'bound_by': bound_by,
+                       # none: F.grid_sample pads with zeros or the border
+                       # where RoIAlign zeroes outside [-1, H] and clamps
+                       # inside, wants the map once per RoI, and leaves the
+                       # mean over a bin's samples to a second call
+                       'library_ms': None}
+    return row
+
+
 def synthetic_roidb(seed, pixel_means, sizes=IMAGE_SIZES, min_side=8):
     """Seeded uint8 BGR images of VOC-like sizes with ~2000 MCG-like
     proposals and objectness each. The pixels are 16-px blocks plus noise
@@ -450,7 +576,7 @@ def phase_slice():
     torch.cuda.reset_peak_memory_stats()
     rp.roi_pool_cuda.launches = 0
     t0 = time.time()
-    all_boxes = test_net(model, roidb)
+    all_boxes, _, _ = test_net(model, roidb)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = rp.roi_pool_cuda.launches
@@ -470,7 +596,7 @@ def phase_slice():
     kernel = rp.roi_pool_cuda
     rp.roi_pool_cuda = lambda *a: rp.roi_pool_reference(*a)
     try:
-        plain_boxes = test_net(model, roidb)
+        plain_boxes, _, _ = test_net(model, roidb)
     finally:
         rp.roi_pool_cuda = kernel
     if kernel.launches != launches:
@@ -503,25 +629,32 @@ def reset_counts():
     rp.roi_pool_cuda.launches = 0
     rp.roi_pool_backward_cuda.launches = 0
     ctx.roi_loop_pool_cuda.launches = 0
+    rp.roi_align_cuda.launches = 0
 
 
 def read_counts():
-    """Launches of (RoIPoolF forward, RoIPoolF backward, RoILoopPool)."""
+    """Launches of (RoIPoolF forward, RoIPoolF backward, RoILoopPool,
+    RoIAlign)."""
     from nafwebsod_torch.ops import context as ctx
     from nafwebsod_torch.ops import roi_pool as rp
     return (rp.roi_pool_cuda.launches, rp.roi_pool_backward_cuda.launches,
-            ctx.roi_loop_pool_cuda.launches)
+            ctx.roi_loop_pool_cuda.launches, rp.roi_align_cuda.launches)
 
 
-def check_leaves_moved(model, before, unmoved=()):
+def check_leaves_moved(model, before, unmoved=(), may_stay=()):
     """Every head leaf changed and no body leaf did; the head leaves in
-    ``unmoved`` must not have changed either."""
+    ``unmoved`` must not have changed either, those in ``may_stay`` may or
+    may not have. Returns the leaves of ``may_stay`` that changed."""
+    stayed = []
     for key, value in model.state_dict().items():
         moved = not torch.equal(value, before[key])
         if (key.startswith('body.') or key in unmoved) and moved:
             raise AssertionError('leaf %s changed' % key)
-        if not key.startswith('body.') and key not in unmoved and not moved:
+        if key in may_stay:
+            stayed.extend([key] if moved else [])
+        elif not key.startswith('body.') and key not in unmoved and not moved:
             raise AssertionError('trainable leaf %s did not change' % key)
+    return stayed
 
 
 def log_steps(name, records):
@@ -554,7 +687,7 @@ def phase_train_flagship():
     reset_counts()
     model, opt_state, records = train_model(roidb, max_iters=4)
     torch.cuda.synchronize()
-    fwd, bwd, ring = read_counts()
+    fwd, bwd, ring, align = read_counts()
     spec = model.spec
     assert spec.compute_dtype == 'bfloat16' and spec.hidden_dim == 4096
     assert spec.num_classes == 21 and spec.freeze_conv_body
@@ -568,10 +701,10 @@ def phase_train_flagship():
         raise AssertionError('mixup steps: %s' % [r['mixup']
                                                   for r in records])
     check_leaves_moved(model, before)
-    if (fwd, bwd, ring) != (len(records), 0, 0):
+    if (fwd, bwd, ring, align) != (len(records), 0, 0, 0):
         raise AssertionError('flagship training launched K1 %d times, K3 %d '
-                             'times and K2 %d times in %d steps' % (
-                                 fwd, bwd, ring, len(records)))
+                             'times, K2 %d times and K4 %d times in %d steps'
+                             % (fwd, bwd, ring, align, len(records)))
     log_steps('flagship training (2048 padded RoIs, step 1 a mixup blend)',
               records)
     log('flagship training: class_weight_mean %s, K1 launches %d, K3 '
@@ -614,6 +747,26 @@ def csc_maps_and_weights(model, batch, seed):
     return maps, keep, w
 
 
+def label_with_top_classes(name, roidb):
+    """Label each image with the two classes the cfg's untrained model
+    scores highest on it, so that the CPG seeds' gradients are not all zero
+    (the random head's class softmax is nearly one-hot). Returns that
+    model's state dict, what a training run from the cfg's seed starts
+    from."""
+    from nafwebsod_torch.engine.test_engine import initialize_model_from_cfg
+    from nafwebsod_torch.engine.train import build_minibatch
+    fresh = initialize_model_from_cfg()
+    for i, entry in enumerate(roidb):
+        batch = device_batch(fresh, build_minibatch(
+            roidb, i, np.random.RandomState(i)))
+        top = image_scores(fresh, batch).topk(2)
+        entry['gt_classes'][:2] = (top.indices + 1).tolist()
+        log('%s image %d: labelled classes %s (untrained scores %s)' % (
+            name, i, entry['gt_classes'][:2].tolist(),
+            ['%.3g' % v for v in top.values.tolist()]))
+    return {k: v.clone() for k, v in fresh.state_dict().items()}
+
+
 def phase_train_csc():
     """Phase 7. Returns (forward launches, backward launches) of the three
     training steps."""
@@ -633,25 +786,12 @@ def phase_train_csc():
         'classes of an image (at most TPU.CPG_MAX_GT = %d) are active seeds'
         % (tau, cfg.TPU.CPG_MAX_GT))
     roidb = train_roidb(cfg.PIXEL_MEANS)
-    # label each image with the two classes the untrained model scores
-    # highest on it, so that the seeds' gradients are not all zero (the
-    # random head's class softmax is nearly one-hot)
-    fresh = initialize_model_from_cfg()
-    before = {k: v.clone() for k, v in fresh.state_dict().items()}
-    for i, entry in enumerate(roidb):
-        batch = device_batch(fresh, build_minibatch(
-            roidb, i, np.random.RandomState(i)))
-        top = image_scores(fresh, batch).topk(2)
-        entry['gt_classes'][:2] = (top.indices + 1).tolist()
-        log('CSC image %d: labelled classes %s (untrained scores %s)' % (
-            i, entry['gt_classes'][:2].tolist(),
-            ['%.3g' % v for v in top.values.tolist()]))
-    del fresh
+    before = label_with_top_classes('CSC', roidb)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     model, opt_state, records = train_model(roidb, max_iters=3)
     torch.cuda.synchronize()
-    fwd, bwd, _ = read_counts()
+    fwd, bwd, _, _ = read_counts()
     spec = model.spec
     assert spec.compute_dtype == 'bfloat16' and spec.hidden_dim == 4096
     assert spec.csc and spec.box_head == 'vgg16_2fc'
@@ -849,13 +989,13 @@ def phase_context_inference():
         results = test_engine.run_inference(model=model, images=pixels)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        fwd, bwd, ring = read_counts()
+        fwd, bwd, ring, align = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         n = len(pixels)
-        if (fwd, bwd, ring) != (n, 0, 2 * n):
+        if (fwd, bwd, ring, align) != (n, 0, 2 * n, 0):
             raise AssertionError('context inference over %d images launched '
-                                 'K1 %d times, K3 %d times, K2 %d times' % (
-                                     n, fwd, bwd, ring))
+                                 'K1 %d times, K3 %d times, K2 %d times, K4 '
+                                 '%d times' % (n, fwd, bwd, ring, align))
         saved = load_object(det_file)
         if saved['image_ids'] != sorted(pixels):
             raise AssertionError('detections.pkl image_ids %s' %
@@ -950,7 +1090,7 @@ def phase_train_context():
     reset_counts()
     model, opt_state, records = train_model(roidb, max_iters=3)
     torch.cuda.synchronize()
-    fwd, bwd, ring = read_counts()
+    fwd, bwd, ring, align = read_counts()
     spec = model.spec
     assert spec.is_context and spec.compute_dtype == 'bfloat16'
     assert spec.hidden_dim == 4096 and spec.freeze_conv_body
@@ -962,16 +1102,302 @@ def phase_train_context():
     # fc8d = FC(frame) - FC(context) through one layer: its bias cancels,
     # gets a zero gradient, and stays at its initial zeros
     check_leaves_moved(model, before, unmoved=('head.fc8d_frame.bias',))
-    if (fwd, bwd, ring) != (len(records), 0, 2 * len(records)):
+    if (fwd, bwd, ring, align) != (len(records), 0, 2 * len(records), 0):
         raise AssertionError('context training launched K1 %d times, K3 %d '
-                             'times and K2 %d times in %d steps' % (
-                                 fwd, bwd, ring, len(records)))
+                             'times, K2 %d times and K4 %d times in %d steps'
+                             % (fwd, bwd, ring, align, len(records)))
     log_steps('context training (2048 padded RoIs, three streams)', records)
     log('context training: K1 launches %d, K2 launches %d, K3 launches %d'
         % (fwd, ring, bwd))
     if '--profile' in sys.argv:
         profile_train_step('context', model, opt_state, roidb)
     return fwd, ring
+
+
+def check_segms(all_boxes, all_segms, roidb, expand):
+    """One RLE per detection, each of the image's size; each decoded mask
+    lies inside its box (expanded about its centre by ``expand`` and
+    truncated to integers, as the paste does) and inside the image.
+    Returns (number of masks, share of them that are not empty)."""
+    from nafwebsod_torch.ops import boxes as box_utils
+    from nafwebsod_torch.utils.segms import rle_to_mask
+    n_masks = filled = 0
+    for i, entry in enumerate(roidb):
+        h, w = entry['image'].shape[:2]
+        for j in range(1, 21):
+            dets = np.asarray(all_boxes[j][i]).reshape(-1, 5)
+            segms = all_segms[j][i]
+            if len(segms) != len(dets):
+                raise AssertionError('image %d class %d: %d masks for %d '
+                                     'detections' % (i, j, len(segms),
+                                                     len(dets)))
+            if not len(dets):
+                continue
+            boxes = box_utils.expand_boxes(dets[:, :4], expand).astype(
+                np.int32)
+            for rle, box in zip(segms, boxes):
+                mask = rle_to_mask(rle)
+                if rle['size'] != [h, w] or mask.shape != (h, w):
+                    raise AssertionError('mask of size %s in a %dx%d image'
+                                         % (rle['size'], h, w))
+                ys, xs = np.nonzero(mask)
+                n_masks += 1
+                if not len(ys):
+                    continue
+                filled += 1
+                if (xs.min() < box[0] or xs.max() > box[2]
+                        or ys.min() < box[1] or ys.max() > box[3]):
+                    raise AssertionError(
+                        'image %d class %d: a mask leaves its box %s' % (
+                            i, j, box.tolist()))
+    if filled == 0:     # the checks above would have held nothing
+        raise AssertionError('%d masks, none with a pixel' % n_masks)
+    return n_masks, filled / n_masks
+
+
+def phase_seg_fcn_inference():
+    """Phase 10, inference. Returns (RoIPoolF launches, RoIAlign
+    launches) of the counted run."""
+    from nafwebsod_torch.core.config import (SEG_FCN, cfg,
+                                             merge_cfg_from_cfg, reset_cfg)
+    from nafwebsod_torch.engine.test_engine import (
+        initialize_model_from_cfg, test_net)
+    from nafwebsod_torch.ops import roi_pool as rp
+    from nafwebsod_torch.utils.io import load_object
+
+    reset_cfg()
+    merge_cfg_from_cfg(SEG_FCN)
+    model = initialize_model_from_cfg()
+    spec = model.spec
+    assert spec.mask_on and spec.mask_head == 'fcn'
+    assert (spec.mask_resolution, spec.mask_dim_reduced) == (14, 256)
+    assert spec.compute_dtype == 'bfloat16' and spec.hidden_dim == 4096
+    roidb = synthetic_roidb(5, cfg.PIXEL_MEANS)
+    n = len(roidb)
+    test_net(model, roidb[:1])                   # warm-up image
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.time()
+        all_boxes, all_segms, _ = test_net(model, roidb, out_dir)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        saved = load_object(os.path.join(out_dir, 'detections.pkl'))
+    fwd, bwd, ring, align = read_counts()
+    if (fwd, bwd, ring, align) != (n, 0, 0, n):
+        raise AssertionError('SEG_FCN inference over %d images launched K1 '
+                             '%d times, K3 %d times, K2 %d times, K4 %d '
+                             'times' % (n, fwd, bwd, ring, align))
+    check_detections(all_boxes, n, int(cfg.TEST.DETECTIONS_PER_IM))
+    m = 2 * spec.mask_resolution
+    n_masks, filled = check_segms(all_boxes, all_segms, roidb, (m + 2.0) / m)
+    if saved['all_segms'] != all_segms:
+        raise AssertionError('detections.pkl does not hold the masks')
+    log('SEG_FCN inference: %d images, %.2f ms/image (host clock, after a '
+        'warm-up image, masks and RLEs included), peak device memory %.0f '
+        'MiB, %d masks (one per detection, %.2f of them not empty), each '
+        'inside its expanded box and its image, K1 launches %d, K4 launches '
+        '%d' % (n, wall / n * 1e3,
+                torch.cuda.max_memory_allocated() / 2 ** 20, n_masks, filled,
+                fwd, align))
+
+    # the same images with RoIAlign forced to its plain version
+    kernel = rp.roi_align_cuda
+    rp.roi_align_cuda = lambda *a: rp.roi_align_reference(*a)
+    try:
+        plain_boxes, plain_segms, _ = test_net(model, roidb)
+    finally:
+        rp.roi_align_cuda = kernel
+    if kernel.launches != align:
+        raise AssertionError('the plain run launched the kernel')
+    if plain_segms != all_segms:
+        raise AssertionError('kernel and plain RoIAlign give other masks')
+    log('plain RoIAlign on the card: identical masks')
+    if '--profile' in sys.argv:
+        profile_image(model, roidb[0])
+    return fwd, align
+
+
+def check_momentum(opt_state, names):
+    """The gradient reached each of the named leaves: a finite momentum
+    buffer that is not all zero."""
+    for name in names:
+        v = opt_state['momentum'][name]
+        if not torch.isfinite(v).all() or not v.any():
+            raise AssertionError('momentum of %s is zero or not finite'
+                                 % name)
+
+
+def phase_train_seg_fcn():
+    """Phase 10, training. Returns (RoIPoolF launches, RoIAlign
+    launches)."""
+    from nafwebsod_torch.core.config import (SEG_FCN, cfg,
+                                             merge_cfg_from_cfg, reset_cfg)
+    from nafwebsod_torch.engine.test_engine import initialize_model_from_cfg
+    from nafwebsod_torch.engine.train import train_model
+    from nafwebsod_torch.utils.bridge import blob_names
+
+    reset_cfg()
+    merge_cfg_from_cfg(SEG_FCN)
+    cfg.SOLVER.BASE_LR = TRAIN_BASE_LR
+    roidb = train_roidb(cfg.PIXEL_MEANS)
+    before = {k: v.clone() for k, v in
+              initialize_model_from_cfg().state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    model, opt_state, records = train_model(roidb, max_iters=3)
+    torch.cuda.synchronize()
+    fwd, bwd, ring, align = read_counts()
+    spec = model.spec
+    assert spec.mask_on and spec.mask_head == 'fcn' and spec.freeze_conv_body
+    assert spec.compute_dtype == 'bfloat16' and spec.hidden_dim == 4096
+    for r in records:
+        for key in ('loss', 'loss_cls', 'mask_loss_cls'):
+            if not np.isfinite(r[key]):
+                raise AssertionError('iter %d: %s = %r' % (
+                    r['iter'], key, r[key]))
+        if r['mask_loss_cls'] <= 0:
+            raise AssertionError('mask_loss_cls %r' % r['mask_loss_cls'])
+    # The mask tower starts at weights of std 0.001, and its loss is a mean
+    # over 2048 RoIs and 20 classes: at this learning rate a weight's step
+    # is below float32's resolution of the weight, so its value may stay.
+    # Its gradient must have arrived all the same: every mask leaf's
+    # momentum is non-zero, and the biases (which start at 0) moved.
+    mask_weights = tuple(k for k in before if k.startswith('mask_head.')
+                         and k.endswith('.weight'))
+    names = blob_names(model)
+    check_momentum(opt_state, [names[k] for k in before
+                               if k.startswith('mask_head.')])
+    moved = check_leaves_moved(model, before, may_stay=mask_weights)
+    if (fwd, bwd, ring, align) != (len(records), 0, 0, len(records)):
+        raise AssertionError('SEG_FCN training launched K1 %d times, K3 %d '
+                             'times, K2 %d times and K4 %d times in %d steps'
+                             % (fwd, bwd, ring, align, len(records)))
+    log_steps('SEG_FCN training (2048 padded RoIs, float32 mask tower)',
+              records)
+    log('SEG_FCN training: mask_loss_cls %s, every mask leaf has momentum, '
+        'mask weights that moved at this learning rate: %s, K1 launches %d, '
+        'K4 launches %d' % (['%.4g' % r['mask_loss_cls'] for r in records],
+                            moved, fwd, align))
+    if '--profile' in sys.argv:
+        profile_train_step('SEG_FCN', model, opt_state, roidb)
+    return fwd, align
+
+
+def phase_align_box_transform():
+    """Phase 11. Returns the RoIAlign launches of the counted forward."""
+    from nafwebsod_torch.core.config import (CSC, cfg, merge_cfg_from_cfg,
+                                             reset_cfg)
+    from nafwebsod_torch.engine import test as infer
+    from nafwebsod_torch.engine.test_engine import initialize_model_from_cfg
+    from nafwebsod_torch.ops import roi_pool as rp
+
+    reset_cfg()
+    merge_cfg_from_cfg(CSC)       # the plain 2fc head, without CPG and CSC
+    cfg.WSL.CPG = cfg.WSL.CSC = False
+    cfg.FAST_RCNN.ROI_XFORM_METHOD = 'RoIAlign'
+    model = initialize_model_from_cfg()
+    assert model.spec.roi_xform_method == 'RoIAlign'
+    assert model.spec.roi_sampling_ratio == 2
+    e = synthetic_roidb(6, cfg.PIXEL_MEANS)[0]
+    reset_counts()
+    scores, _, _ = infer.im_detect_bbox(model, e['image'], cfg.TEST.SCALE,
+                                        cfg.TEST.MAX_SIZE, e['boxes'],
+                                        e['obn_scores'])
+    counts = read_counts()
+    if counts != (0, 0, 0, 1):
+        raise AssertionError('RoIAlign box transform: launches %s' %
+                             (counts,))
+    if scores.shape != (NUM_PROPOSALS, 21) or not np.isfinite(scores).all():
+        raise AssertionError('bad scores %s' % (scores.shape,))
+    kernel = rp.roi_align_cuda
+    rp.roi_align_cuda = lambda *a: rp.roi_align_reference(*a)
+    try:
+        plain, _, _ = infer.im_detect_bbox(
+            model, e['image'], cfg.TEST.SCALE, cfg.TEST.MAX_SIZE, e['boxes'],
+            e['obn_scores'])
+    finally:
+        rp.roi_align_cuda = kernel
+    if not np.array_equal(scores, plain):
+        raise AssertionError('RoIAlign box transform: kernel and plain '
+                             'scores differ by %g' % np.abs(scores
+                                                           - plain).max())
+    log('RoIAlign as the box transform: %d proposals, scores finite and '
+        'equal to the plain-version rerun, K4 launches %d' % (
+            len(scores), counts[3]))
+    return counts[3]
+
+
+def phase_seg_deeplab():
+    """Phase 12. Returns (RoIPoolF launches, RoIPoolF backward launches)
+    of inference plus training."""
+    from nafwebsod_torch.core.config import (SEG, cfg, merge_cfg_from_cfg,
+                                             reset_cfg)
+    from nafwebsod_torch.engine.test_engine import (
+        initialize_model_from_cfg, test_net)
+    from nafwebsod_torch.engine.train import train_model
+
+    reset_cfg()
+    merge_cfg_from_cfg(SEG)
+    model = initialize_model_from_cfg()
+    spec = model.spec
+    assert spec.is_deeplab and spec.cpg and not spec.csc
+    assert spec.compute_dtype == 'bfloat16' and spec.hidden_dim == 4096
+    roidb = synthetic_roidb(7, cfg.PIXEL_MEANS)[:2]
+    test_net(model, roidb[:1])                   # warm-up image
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    all_boxes, all_segms, _ = test_net(model, roidb)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    infer_counts = read_counts()
+    if infer_counts != (len(roidb), 0, 0, 0):
+        raise AssertionError('SEG inference: launches %s' % (infer_counts,))
+    n_masks, filled = check_segms(all_boxes, all_segms, roidb, 1.0)
+    log('SEG (deeplab) inference: %d images, %.2f ms/image (host clock, '
+        'after a warm-up image), peak device memory %.0f MiB, %d masks '
+        '(%.2f of them not empty), each inside its box and its image, K1 '
+        'launches %d' % (
+            len(roidb), wall / len(roidb) * 1e3,
+            torch.cuda.max_memory_allocated() / 2 ** 20, n_masks, filled,
+            infer_counts[0]))
+    del model
+
+    cfg.SOLVER.BASE_LR = TRAIN_BASE_LR
+    tau = cfg.WSL.CPG_TAU
+    cfg.WSL.CPG_TAU = 0.0
+    log('SEG training: WSL.CPG_TAU lowered from %s to 0.0 -- both labelled '
+        'classes of an image are CPG seeds' % tau)
+    roidb = train_roidb(cfg.PIXEL_MEANS)
+    before = label_with_top_classes('SEG', roidb)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    model, opt_state, records = train_model(roidb, max_iters=3)
+    torch.cuda.synchronize()
+    fwd, bwd, ring, align = read_counts()
+    for r in records:
+        for key in ('loss', 'loss_cls', 'mask_seed_loss',
+                    'mask_constraint_loss'):
+            if not np.isfinite(r[key]):
+                raise AssertionError('iter %d: %s = %r' % (
+                    r['iter'], key, r[key]))
+    check_leaves_moved(model, before)
+    seeds = 2 * len(records)
+    if (fwd, bwd, ring, align) != (len(records), seeds, 0, 0):
+        raise AssertionError('SEG training launched K1 %d times, K3 %d '
+                             'times, K2 %d times and K4 %d times in %d steps '
+                             'with %d seeds' % (fwd, bwd, ring, align,
+                                                len(records), seeds))
+    log_steps('SEG (deeplab) training (2 CPG seeds a step, ASPP head, dense '
+              'CRF on the mask grid)', records)
+    log('SEG training: mask_seed_loss %s, mask_constraint_loss %s, K1 '
+        'launches %d, K3 launches %d = seeds' % (
+            ['%.4g' % r['mask_seed_loss'] for r in records],
+            ['%.4g' % r['mask_constraint_loss'] for r in records], fwd, bwd))
+    return infer_counts[0] + fwd, bwd
 
 
 def host_ms(fn, reps=10):
@@ -1137,22 +1563,36 @@ def main():
         k1 = phase_k1()
         k2 = phase_k2()
         k3 = phase_k3()
+        k4 = phase_k4()
         infer_fwd = phase_slice()
         train_fwd = phase_train_flagship()
         csc_fwd, k3['launches'] = phase_train_csc()
         ctx_infer_fwd, ctx_infer_ring = phase_context_inference()
         ctx_train_fwd, ctx_train_ring = phase_train_context()
+        fcn_infer_fwd, fcn_infer_align = phase_seg_fcn_inference()
+        fcn_train_fwd, fcn_train_align = phase_train_seg_fcn()
+        box_align = phase_align_box_transform()
+        deeplab_fwd, deeplab_bwd = phase_seg_deeplab()
         # each path was driven with the counts set to 0 just before it
         k1['launches'] = (infer_fwd + train_fwd + csc_fwd + ctx_infer_fwd
-                          + ctx_train_fwd)
+                          + ctx_train_fwd + fcn_infer_fwd + fcn_train_fwd
+                          + deeplab_fwd)
         k2['launches'] = ctx_infer_ring + ctx_train_ring
+        csc_bwd = k3['launches']
+        k3['launches'] = csc_bwd + deeplab_bwd
+        k4['launches'] = fcn_infer_align + fcn_train_align + box_align
         log('K1 launches by path: flagship inference %d, flagship training '
             '%d, CSC training %d, context inference %d, context training '
-            '%d; K2 launches: context inference %d, context training %d; K3 '
-            'launches: CSC training %d' % (
+            '%d, SEG_FCN inference %d, SEG_FCN training %d, SEG inference '
+            'and training %d; K2 launches: context inference %d, context '
+            'training %d; K3 launches: CSC training %d, SEG training %d; K4 '
+            'launches: SEG_FCN inference %d, SEG_FCN training %d, box '
+            'transform %d' % (
                 infer_fwd, train_fwd, csc_fwd, ctx_infer_fwd, ctx_train_fwd,
-                ctx_infer_ring, ctx_train_ring, k3['launches']))
-        kernels.extend([k1, k2, k3])
+                fcn_infer_fwd, fcn_train_fwd, deeplab_fwd, ctx_infer_ring,
+                ctx_train_ring, csc_bwd, deeplab_bwd, fcn_infer_align,
+                fcn_train_align, box_align))
+        kernels.extend([k1, k2, k3, k4])
     except Exception as exc:  # report the phase that failed, exit non-zero
         import traceback
         traceback.print_exc()

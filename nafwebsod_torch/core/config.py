@@ -908,6 +908,25 @@ CONTEXT = dict(
     WSL=dict(FLAGSHIP['WSL'], CONTEXT=True, CONTEXT_RATIO=1.8),
     TPU=FLAGSHIP['TPU'])
 
+# The values of configs/wsod_families/seg_V-16-C5.yaml (the plain 2fc head
+# with the image-level deeplab mask head: ASPP logits, CPG pseudo labels,
+# dense CRF; the flagship's data and solver recipe). A test holds this dict
+# equal to the YAML file's merge.
+SEG = dict(
+    CSC,
+    MODEL=dict(FLAGSHIP['MODEL'], MASK_ON=True),
+    MRCNN={'ROI_MASK_HEAD': 'wsl_seg_heads.deeplab_vgg16_head',
+           'RESOLUTION': 28},
+    WSL=dict(FLAGSHIP['WSL'], CPG=True, CPG_TAU=0.7))
+
+# SEG with the family's other mask head, the fcn tower over RoIAlign, in
+# Detectron's published geometry (14x14 RoIAlign, 28x28 masks). No YAML
+# file: the JAX package takes the same cfg.
+SEG_FCN = dict(
+    SEG,
+    MRCNN={'ROI_MASK_HEAD': 'wsl_seg_heads.mask_rcnn_fcn_head',
+           'ROI_XFORM_RESOLUTION': 14, 'RESOLUTION': 28})
+
 
 # Snapshot defaults for reset_cfg(); keep at module end.
 _DEFAULT_CFG = copy.deepcopy({k: v for k, v in __C.items()})

@@ -1,8 +1,8 @@
 """Evaluation dispatch and the EXPECTED_RESULTS regression gate (the port's
 own copy of the JAX package's ``data/task_evaluation.py``): box results go
 to the VOC evaluator (AP and CorLoc, for datasets with a devkit). The COCO
-and Cityscapes evaluators, masks and keypoints are not ported yet and
-raise ``NotImplementedError``."""
+and Cityscapes evaluators and the evaluation of masks and keypoints are not
+ported yet and raise ``NotImplementedError``."""
 
 import logging
 import os
@@ -35,16 +35,24 @@ def evaluate_boxes(json_dataset, all_boxes, output_dir, image_ids=None):
         json_dataset, all_boxes, output_dir, image_ids=image_ids)
 
 
+def evaluate_masks(json_dataset, all_boxes, all_segms, output_dir):
+    raise NotImplementedError(
+        'segm evaluation (evaluate_masks) is not ported yet: the COCO '
+        'protocol rasterises ground-truth polygons with cv2.fillPoly, '
+        'which the port does not have; the RLEs stay in detections.pkl')
+
+
 def evaluate_all(dataset, all_boxes, all_segms, all_keyps, output_dir,
                  image_ids=None):
     """{dataset name: {'ap', 'mAP', 'corloc', 'mean_corloc'}}.
     ``image_ids``: the detection-time ids of the images, aligned with the
     positional index of all_boxes[cls][i] (``test_net`` saves them in
     detections.pkl); the evaluator checks them against the devkit's image
-    set."""
-    if all_segms is not None or all_keyps is not None:
-        raise NotImplementedError(
-            'mask and keypoint evaluation are not ported yet')
+    set. Asked to score segms or keypoints it raises."""
+    if all_segms is not None:
+        evaluate_masks(dataset, all_boxes, all_segms, output_dir)
+    if all_keyps is not None:
+        raise NotImplementedError('keypoint evaluation is not ported yet')
     res = evaluate_boxes(dataset, all_boxes, output_dir,
                          image_ids=image_ids)
     return {dataset.name: res}

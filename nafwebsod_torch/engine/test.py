@@ -8,6 +8,11 @@ cross-class cap on the device, then detection assembly on the host. The
 two-call route (``im_detect_bbox`` then ``box_results_with_nms_and_limit``)
 computes the same detections from the expanded per-proposal scores.
 
+With MODEL.MASK_ON, ``im_detect_mask`` runs the mask head on the final
+detections (the fcn head per box through RoIAlign, the deeplab head once
+per image) and ``segm_results`` pastes the soft masks into the image and
+encodes them as COCO RLEs. Mask test-time augmentation is not ported.
+
 The RoI axis is not padded (the JAX package pads it to
 ``TPU.ROI_PAD_MULTIPLE`` for static XLA shapes and masks the padding out).
 """
@@ -21,7 +26,10 @@ import torch
 from nafwebsod_torch.core.config import cfg
 from nafwebsod_torch.data.minibatch import (pad_image_to_bucket,
                                             prep_im_for_blob)
+from nafwebsod_torch.models import vgg16
+from nafwebsod_torch.ops import boxes as box_utils
 from nafwebsod_torch.ops import jbox
+from nafwebsod_torch.utils.segms import mask_to_rle
 from nafwebsod_torch.utils.timer import Timer
 
 logger = logging.getLogger(__name__)
@@ -159,6 +167,7 @@ def check_protocol():
         ('TEST.BBOX_AUG.ENABLED', cfg.TEST.BBOX_AUG.ENABLED),
         ('TEST.SOFT_NMS.ENABLED', cfg.TEST.SOFT_NMS.ENABLED),
         ('TEST.BBOX_VOTE.ENABLED', cfg.TEST.BBOX_VOTE.ENABLED),
+        ('TEST.MASK_AUG.ENABLED', cfg.TEST.MASK_AUG.ENABLED),
         ('TEST.DETECTIONS_PER_IM <= 0',
          int(cfg.TEST.DETECTIONS_PER_IM) <= 0),
         ('TEST.PRECOMPUTED_PROPOSALS False',
@@ -167,15 +176,144 @@ def check_protocol():
         raise NotImplementedError('not ported yet: ' + ', '.join(unported))
 
 
+def _final_boxes(cls_boxes):
+    """The per-class NMS survivors flattened back to (R, 4), and the count
+    of each foreground class."""
+    per_cls = [np.asarray(cls_boxes[j]).reshape(-1, 5)
+               for j in range(1, cfg.MODEL.NUM_CLASSES)]
+    boxes = (np.vstack([d[:, :4] for d in per_cls])
+             if per_cls else np.zeros((0, 4), np.float32))
+    return boxes, [len(d) for d in per_cls]
+
+
+def resize_bilinear(src, out_h, out_w):
+    """``cv2.resize(src, (out_w, out_h))`` of a float32 (h, w) array with
+    its default bilinear interpolation: half-pixel centres at the ratio
+    source / output per axis, clamped at the border, no antialiasing."""
+    src = torch.from_numpy(np.ascontiguousarray(src, dtype=np.float32))
+    h, w = src.shape
+    out = torch.ops.aten.upsample_bilinear2d(
+        src[None, None], [int(out_h), int(out_w)], False,
+        out_h / float(h), out_w / float(w))
+    return out[0, 0].numpy()
+
+
+def segm_results_deeplab(cls_boxes, masks, ref_boxes, im_h, im_w):
+    """Per-detection RLEs from the deeplab head's image-level grid
+    ``masks`` (1, h, w, C), channel j the soft mask of class j: the grid is
+    resized to the image and binarised at MRCNN.THRESH_BINARIZE, and each
+    detection keeps the pixels inside its box."""
+    num_classes = cfg.MODEL.NUM_CLASSES
+    cls_segms = [[] for _ in range(num_classes)]
+    mask_ind = 0
+    for j in range(1, num_classes):
+        n_dets = len(np.asarray(cls_boxes[j]).reshape(-1, 5))
+        segms = []
+        if n_dets:
+            cls_ch = j if cfg.MRCNN.CLS_SPECIFIC_MASK else 0
+            soft = resize_bilinear(masks[0, :, :, cls_ch], im_h, im_w)
+            binarized = (soft > cfg.MRCNN.THRESH_BINARIZE).astype(np.uint8)
+        for _ in range(n_dets):
+            box = ref_boxes[mask_ind]
+            im_mask = np.zeros((im_h, im_w), np.uint8)
+            x0, x1 = int(max(box[0], 0)), int(min(box[2] + 1, im_w))
+            y0, y1 = int(max(box[1], 0)), int(min(box[3] + 1, im_h))
+            if x1 > x0 and y1 > y0:
+                im_mask[y0:y1, x0:x1] = binarized[y0:y1, x0:x1]
+            segms.append(mask_to_rle(im_mask))
+            mask_ind += 1
+        cls_segms[j] = segms
+    return cls_segms
+
+
+def segm_results(cls_boxes, masks, ref_boxes, im_h, im_w):
+    """Per-detection RLEs from the fcn head's per-RoI soft masks
+    (R, M, M, C): each mask, padded by one zero pixel against border
+    artifacts, is resized to its box expanded by (M + 2) / M, binarised at
+    MRCNN.THRESH_BINARIZE and pasted into the image. The deeplab head's
+    image-level grid goes to ``segm_results_deeplab``. Returns
+    cls_segms[class] = [RLE per detection], in ``cls_boxes``' order."""
+    if 'deeplab' in cfg.MRCNN.ROI_MASK_HEAD:
+        return segm_results_deeplab(cls_boxes, masks, ref_boxes, im_h, im_w)
+    num_classes = cfg.MODEL.NUM_CLASSES
+    cls_segms = [[] for _ in range(num_classes)]
+    mask_ind = 0
+    m = masks.shape[1]
+    scale = (m + 2.0) / m
+    ref_boxes = box_utils.expand_boxes(ref_boxes, scale).astype(np.int32)
+    padded = np.zeros((m + 2, m + 2), np.float32)
+    for j in range(1, num_classes):
+        segms = []
+        for _ in range(len(np.asarray(cls_boxes[j]).reshape(-1, 5))):
+            cls_ch = j if cfg.MRCNN.CLS_SPECIFIC_MASK else 0
+            padded[1:-1, 1:-1] = masks[mask_ind, :, :, cls_ch]
+            box = ref_boxes[mask_ind]
+            w = max(box[2] - box[0] + 1, 1)
+            h = max(box[3] - box[1] + 1, 1)
+            mask = resize_bilinear(padded, h, w)
+            mask = (mask > cfg.MRCNN.THRESH_BINARIZE).astype(np.uint8)
+            im_mask = np.zeros((im_h, im_w), np.uint8)
+            x0, x1 = max(box[0], 0), min(box[2] + 1, im_w)
+            y0, y1 = max(box[1], 0), min(box[3] + 1, im_h)
+            if x1 > x0 and y1 > y0:
+                im_mask[y0:y1, x0:x1] = mask[(y0 - box[1]):(y1 - box[1]),
+                                             (x0 - box[0]):(x1 - box[0])]
+            segms.append(mask_to_rle(im_mask))
+            mask_ind += 1
+        cls_segms[j] = segms
+    return cls_segms
+
+
+def _mask_forward(model, im, boxes, target_scale, target_max_size):
+    """Soft masks for the given original-image boxes at one image scale,
+    numpy float32: (R, M, M, C) from the fcn head (rois = boxes x
+    im_scale), or the deeplab head's one (1, h, w, C) grid, cropped to the
+    blob's true extent so that the bucket padding never reaches the
+    per-detection resize."""
+    device = model.device
+    im_blob, im_scale = prep_im_for_blob(
+        im, cfg.PIXEL_MEANS, target_scale, target_max_size, cfg.PIXEL_STDS,
+        device=device)
+    im_in = pad_image_to_bucket(im_blob, cfg.TPU.SIZE_BUCKET_MULTIPLE)
+    if model.spec.is_deeplab:
+        grid = model.forward_deeplab_masks(im_in[None])
+        s = vgg16.spatial_scale(model.spec.dilation)
+        gh = max(int(np.ceil(im_blob.shape[0] * s)), 1)
+        gw = max(int(np.ceil(im_blob.shape[1] * s)), 1)
+        return grid[:, :gh, :gw, :].cpu().numpy()
+    rois5 = np.hstack([np.zeros((len(boxes), 1), np.float32),
+                       boxes * im_scale]).astype(np.float32)
+    return model.forward_masks(
+        im_in[None], torch.from_numpy(rois5).to(device)).cpu().numpy()
+
+
+def im_detect_mask(model, im, cls_boxes):
+    """The mask head on the final detections. Returns cls_segms: per class
+    one RLE per detection."""
+    boxes, _ = _final_boxes(cls_boxes)
+    if len(boxes) == 0:
+        return [[] for _ in range(cfg.MODEL.NUM_CLASSES)]
+    masks = _mask_forward(model, im, boxes, cfg.TEST.SCALE,
+                          cfg.TEST.MAX_SIZE)
+    return segm_results(cls_boxes, masks, boxes, im.shape[0], im.shape[1])
+
+
 def im_detect_all(model, im, box_proposals, obn_scores, timers=None):
     """Detections of one (H, W, 3) uint8 BGR image from its proposals
-    (R, 4) and objectness (R,) or (R, 1). Returns (cls_boxes, None, None):
-    the per-class (n, 5) [x1, y1, x2, y2, score] arrays, index 0 empty; the
-    mask and keypoint slots of the JAX package's result are not ported."""
+    (R, 4) and objectness (R,) or (R, 1). Returns (cls_boxes, cls_segms,
+    None): the per-class (n, 5) [x1, y1, x2, y2, score] arrays, index 0
+    empty; with MODEL.MASK_ON the per-class lists of one RLE per detection
+    (None otherwise); the keypoint slot of the JAX package's result is not
+    ported."""
     check_protocol()
     if timers is None:
         timers = defaultdict(Timer)
     timers['im_detect_bbox'].tic()
     cls_boxes = im_detect_fused(model, im, box_proposals, obn_scores)
     timers['im_detect_bbox'].toc()
-    return cls_boxes, None, None
+    cls_segms = None
+    if model.spec.mask_on:
+        timers['im_detect_mask'].tic()
+        cls_segms = im_detect_mask(model, im, cls_boxes)
+        timers['im_detect_mask'].toc()
+    return cls_boxes, cls_segms, None

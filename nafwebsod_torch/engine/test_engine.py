@@ -74,13 +74,18 @@ def initialize_model_from_cfg(weights_file=None, device=None):
 
 
 def test_net(model, roidb, output_dir=None, timers=None):
-    """Detect on every roidb entry. Returns all_boxes[class][image], each
-    an (n, 5) float32 array (class 0 and proposal-less images stay []).
-    With ``output_dir`` it also writes ``detections.pkl`` there in the
-    reference layout."""
+    """Detect on every roidb entry. Returns (all_boxes, all_segms,
+    all_keyps) as the JAX package does: all_boxes[class][image] an (n, 5)
+    float32 array (class 0 and proposal-less images stay []);
+    all_segms[class][image] the list of that image's COCO RLEs, one per
+    detection in the same order, with MODEL.MASK_ON (None otherwise);
+    all_keyps None (keypoints are not ported). With ``output_dir`` it also
+    writes ``detections.pkl`` there in the reference layout."""
     check_protocol()
     num_images = len(roidb)
     all_boxes = empty_results(cfg.MODEL.NUM_CLASSES, num_images)
+    all_segms = (empty_results(cfg.MODEL.NUM_CLASSES, num_images)
+                 if model.spec.mask_on else None)
     if timers is None:
         timers = defaultdict(Timer)
     for i, entry in enumerate(roidb):
@@ -91,28 +96,34 @@ def test_net(model, roidb, output_dir=None, timers=None):
             boxes, obn = boxes[proposal], obn[proposal]
         if len(boxes) == 0:
             continue
-        cls_boxes_i, _, _ = im_detect_all(
+        cls_boxes_i, cls_segms_i, _ = im_detect_all(
             model, read_image(entry['image']), boxes, obn, timers)
         extend_results(i, all_boxes, cls_boxes_i)
+        if all_segms is not None:
+            extend_results(i, all_segms, cls_segms_i)
         if i % 10 == 0:
             logger.info('im_detect: %d/%d (det %.3fs)', i + 1, num_images,
                         timers['im_detect_bbox'].average_time)
     if output_dir is not None:
         det_file = os.path.join(output_dir, 'detections.pkl')
-        save_object(dict(all_boxes=all_boxes, all_segms=None, all_keyps=None,
+        save_object(dict(all_boxes=all_boxes, all_segms=all_segms,
+                         all_keyps=None,
                          cfg=dump_cfg_or_none(),
                          image_ids=[e.get('id', i)
                                     for i, e in enumerate(roidb)]),
                     det_file)
         logger.info('Wrote detections to: %s', os.path.abspath(det_file))
-    return all_boxes
+    return all_boxes, all_segms, None
 
 
 def test_net_on_dataset(model, dataset_name, proposal_file, output_dir,
                         multi_gpu=False, images=None):
-    """Detect on one dataset and evaluate. ``images``: optionally
-    {image id: (H, W, 3) uint8 BGR array}, pixels handed over in place of
-    the entries' image files. Returns {dataset name: results}."""
+    """Detect on one dataset and evaluate its boxes. ``images``:
+    optionally {image id: (H, W, 3) uint8 BGR array}, pixels handed over in
+    place of the entries' image files. With MODEL.MASK_ON the masks are
+    left as RLEs in ``detections.pkl`` and not scored: segm evaluation is
+    not ported yet (``task_evaluation.evaluate_masks`` raises). Returns
+    {dataset name: results}."""
     if multi_gpu:
         raise NotImplementedError(
             'multi-process inference is not ported yet')
@@ -123,9 +134,14 @@ def test_net_on_dataset(model, dataset_name, proposal_file, output_dir,
                 entry['image'] = images[entry['id']]
     test_timer = Timer()
     test_timer.tic()
-    all_boxes = test_net(model, roidb, output_dir)
+    all_boxes, all_segms, _ = test_net(model, roidb, output_dir)
     test_timer.toc()
     logger.info('Total inference time: %.3fs', test_timer.average_time)
+    if all_segms is not None:
+        logger.warning(
+            'segm evaluation is not ported yet: the masks of %s are in '
+            'detections.pkl as RLEs and only its boxes are evaluated',
+            dataset_name)
     # the ids in test_net's enumeration order, as detections.pkl holds them
     return task_evaluation.evaluate_all(
         dataset, all_boxes, None, None, output_dir,

@@ -70,12 +70,16 @@ class FcTower(nn.Module):
 
 
 def roi_transform(feat, rois, obn_scores, spatial_scale, resolution=7,
-                  freeze_body=True):
-    """RoIPoolF + RoIFeatureBoost (+ no gradient into a frozen body),
-    flattened in C*H*W order like the reference's NCHW blobs, so reference
-    fc6 weights apply without a transpose. feat: (H, W, C)."""
-    pooled = roi_ops.roi_pool(feat, rois, resolution, resolution,
-                              spatial_scale)
+                  freeze_body=True, method='RoIPoolF', sampling_ratio=2):
+    """RoIPoolF or RoIAlign, then RoIFeatureBoost (+ no gradient into a
+    frozen body), flattened in C*H*W order like the reference's NCHW blobs,
+    so reference fc6 weights apply without a transpose. feat: (H, W, C)."""
+    if method == 'RoIAlign':
+        pooled = roi_ops.roi_align(feat, rois, resolution, resolution,
+                                   spatial_scale, sampling_ratio)
+    else:
+        pooled = roi_ops.roi_pool(feat, rois, resolution, resolution,
+                                  spatial_scale)
     pooled = roi_ops.roi_feature_boost(pooled, obn_scores)
     if freeze_body:
         pooled = pooled.detach()

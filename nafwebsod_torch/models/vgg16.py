@@ -73,8 +73,12 @@ class VGG16(nn.Module):
                 x = F.max_pool2d(x, 2, stride)
             if si + 1 == freeze_at:
                 x = x.detach()
-        scale = 1.0 / 8.0 if self.dilation == 2 else 1.0 / 16.0
-        return x.permute(0, 2, 3, 1), scale
+        return x.permute(0, 2, 3, 1), spatial_scale(self.dilation)
+
+
+def spatial_scale(dilation=2):
+    """Image-to-feature scale of the body: 1/8 dilated, else 1/16."""
+    return 1.0 / 8.0 if dilation == 2 else 1.0 / 16.0
 
 
 def feature_shape(im_h, im_w, dilation=2):

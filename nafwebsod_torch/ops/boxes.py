@@ -60,3 +60,14 @@ def unique_boxes(boxes, scale=1.0):
     digits = np.round(boxes * scale).dot([1, 1e3, 1e6, 1e9])
     _, index = np.unique(digits, return_index=True)
     return np.sort(index)
+
+
+def expand_boxes(boxes, scale):
+    """Scale (N, 4) boxes about their centres (0-based sizes; the mask
+    paste's padding)."""
+    half = (boxes[:, 2:4] - boxes[:, 0:2]) * (0.5 * scale)
+    center = (boxes[:, 2:4] + boxes[:, 0:2]) * 0.5
+    out = np.zeros(boxes.shape)
+    out[:, 0:2] = center - half
+    out[:, 2:4] = center + half
+    return out

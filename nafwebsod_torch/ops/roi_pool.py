@@ -1,4 +1,4 @@
-"""RoIPoolF and RoIFeatureBoost (port of the JAX package's
+"""RoIPoolF, RoIAlign and RoIFeatureBoost (port of the JAX package's
 ``ops/roi_pool.py``).
 
 Layout as in the JAX package: ``feat`` is one image's (H, W, C) map,
@@ -14,6 +14,12 @@ backward launches ``csrc/roi_pool_bwd.cu`` (the port of
 ``roi_pool_pallas_bwd``) for a CUDA tensor and uses
 ``roi_pool_backward_reference`` for a CPU tensor. There is no fallback: a
 CUDA tensor a kernel does not take raises.
+
+``roi_align`` is Detectron's legacy RoIAlign with a static sampling grid;
+its output is float32 or the feature dtype. It launches
+``csrc/roi_align.cu`` (the port of ``roi_align_pallas``) for a CUDA tensor
+and uses ``roi_align_reference`` for a CPU tensor; forward only (the mask
+head and the RoIAlign box transform pool from a frozen body).
 """
 
 import ctypes
@@ -117,18 +123,17 @@ def roi_pool_reference(feat, rois, pooled_h=7, pooled_w=7,
 
 
 _SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 +
-             [ctypes.c_float, ctypes.c_void_p])
 
 
 def launch_pool_forward(name, feat, rois, roi_cols, pooled_h, pooled_w,
-                        spatial_scale):
+                        spatial_scale, extra_ints=(), out_dtype=None):
     """Check the arguments and launch the forward kernel of
     ``csrc/<name>.cu`` (``<name>_fwd_f32`` / ``<name>_fwd_bf16``) on the
     current stream. feat: (H, W, C) contiguous float32 or bfloat16 CUDA
-    tensor; rois: (R, roi_cols) contiguous float32 on the same device.
-    Returns (out (R, pooled_h, pooled_w, C) in feat's type, whether a
-    kernel was launched: not for an empty output)."""
+    tensor; rois: (R, roi_cols) contiguous float32 on the same device;
+    ``extra_ints`` go to the kernel after ``pooled_w``. Returns (out
+    (R, pooled_h, pooled_w, C) in ``out_dtype``, feat's type when None, and
+    whether a kernel was launched: not for an empty output)."""
     if not feat.is_cuda:
         raise ValueError('{}_cuda needs a CUDA tensor'.format(name))
     if feat.dtype not in _SUFFIX:
@@ -146,20 +151,22 @@ def launch_pool_forward(name, feat, rois, roi_cols, pooled_h, pooled_w,
                                                        feat.device))
     h, w, c = feat.shape
     r = rois.shape[0]
-    out = torch.empty((r, pooled_h, pooled_w, c), dtype=feat.dtype,
-                      device=feat.device)
+    out = torch.empty((r, pooled_h, pooled_w, c),
+                      dtype=out_dtype or feat.dtype, device=feat.device)
     if r == 0 or c == 0:
         return out, False
     lib = _build.load(name)
     fn = getattr(lib, '{}_fwd_{}'.format(name, _SUFFIX[feat.dtype]))
-    fn.argtypes = _ARGTYPES
+    fn.argtypes = ([ctypes.c_void_p] * 3 +
+                   [ctypes.c_int] * (6 + len(extra_ints)) +
+                   [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err_str = getattr(lib, name + '_error_string')
     err_str.argtypes = [ctypes.c_int]
     err_str.restype = ctypes.c_char_p
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     rc = fn(feat.data_ptr(), rois.data_ptr(), out.data_ptr(), h, w, c, r,
-            pooled_h, pooled_w, spatial_scale, stream)
+            pooled_h, pooled_w, *extra_ints, spatial_scale, stream)
     if rc != 0:
         raise RuntimeError('{} CUDA launch failed: {}'.format(
             name, err_str(rc).decode()))
@@ -336,6 +343,120 @@ def roi_pool_backward_cuda(feat, rois, g, pooled_h=7, pooled_w=7,
 
 
 roi_pool_backward_cuda.launches = 0
+
+
+def roi_align(feat, rois, pooled_h=7, pooled_w=7, spatial_scale=0.125,
+              sampling_ratio=2, out_dtype=None):
+    """Detectron RoIAlign (legacy, no half-pixel offset) with a static
+    sampling grid. feat: (H, W, C) float32 or bfloat16; rois: (R, 5).
+    Returns (R, pooled_h, pooled_w, C) in ``out_dtype`` (default: the
+    feature dtype): the mean of ``sampling_ratio`` x ``sampling_ratio``
+    bilinear samples per bin, computed in float32 and cast last. Forward
+    only."""
+    if sampling_ratio <= 0:
+        raise ValueError('roi_align needs a static sampling grid: '
+                         'sampling_ratio {} is not positive'.format(
+                             sampling_ratio))
+    if feat.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            'roi_align has no gradient yet: RoIAlign from an unfrozen body '
+            '(TRAIN.FREEZE_CONV_BODY False, FPN) is queued in ROADMAP.md '
+            '(queue 2, "K4 backward")')
+    if feat.is_cuda:
+        out = roi_align_cuda(feat, rois, pooled_h, pooled_w, spatial_scale,
+                             sampling_ratio)
+    elif feat.device.type == 'cpu':
+        out = roi_align_reference(feat, rois, pooled_h, pooled_w,
+                                  spatial_scale, sampling_ratio)
+    else:
+        raise ValueError('roi_align: unsupported device {}'.format(
+            feat.device))
+    return out.to(feat.dtype if out_dtype is None else out_dtype)
+
+
+def _axis_samples(start, end, pooled, sr, limit):
+    """The ``pooled * sr`` sample coordinates between the scaled RoI
+    coordinates ``start`` and ``end`` (R,) on an axis of ``limit`` cells, in
+    float32 and in the JAX function's order of operations. Returns (lower
+    cell, upper cell, the upper cell's weight, validity as 0 / 1), each
+    (R, pooled, sr). Divisors are 0-d tensors: a division by a Python
+    number may be computed as a product with its reciprocal."""
+    extent = (end - start).clamp(min=1.0)
+    bin_size = extent / start.new_tensor(float(pooled))
+    p = torch.arange(pooled, dtype=torch.float32, device=start.device)
+    s = torch.arange(sr, dtype=torch.float32, device=start.device)
+    bin_size = bin_size[:, None, None]
+    coord = ((start[:, None, None] + p[None, :, None] * bin_size)
+             + ((s[None, None, :] + 0.5) * bin_size)
+             / start.new_tensor(float(sr)))
+    valid = ((coord >= -1.0) & (coord <= float(limit))).float()
+    clipped = coord.clamp(0.0, limit - 1.0)
+    lower = torch.floor(clipped)
+    c0 = lower.long()
+    c1 = (c0 + 1).clamp(max=limit - 1)
+    return c0, c1, clipped - lower, valid
+
+
+def roi_align_reference(feat, rois, pooled_h=7, pooled_w=7,
+                        spatial_scale=0.125, sampling_ratio=2, chunk=64):
+    """Plain-PyTorch RoIAlign (mirrors the JAX ``roi_align_xla`` operation
+    for operation), float32 out. Coordinates are not rounded; extents are
+    floored at 1 in feature units; a sample counts iff -1 <= coord <= limit
+    on both axes (a sample at exactly H counts, clipped to H - 1) and is
+    multiplied by 0 otherwise, so a non-finite cell under a zero weight
+    gives NaN; the samples of a bin are summed in row-major order and
+    divided by their number. Works on chunks of ``chunk`` RoIs."""
+    h, w, c = feat.shape
+    r = rois.shape[0]
+    sr = sampling_ratio
+    if r == 0:
+        return torch.zeros((0, pooled_h, pooled_w, c), dtype=torch.float32,
+                           device=feat.device)
+    scaled = rois[:, 1:5].float() * spatial_scale
+    count = scaled.new_tensor(float(sr * sr))
+    outs = []
+    for i in range(0, r, chunk):
+        sw, sh, ew, eh = scaled[i:i + chunk].unbind(1)
+        y0, y1, ly, vy = _axis_samples(sh, eh, pooled_h, sr, h)
+        x0, x1, lx, vx = _axis_samples(sw, ew, pooled_w, sr, w)
+        acc = None
+        for iy in range(sr):
+            ya = y0[:, :, iy, None]                              # (r,PH,1)
+            yb = y1[:, :, iy, None]
+            wy = ly[:, :, iy, None, None]                      # (r,PH,1,1)
+            for ix in range(sr):
+                xa = x0[:, None, :, ix]                          # (r,1,PW)
+                xb = x1[:, None, :, ix]
+                wx = lx[:, None, :, ix, None]                  # (r,1,PW,1)
+                val = (feat[ya, xa].float() * (1 - wy) * (1 - wx)
+                       + feat[ya, xb].float() * (1 - wy) * wx
+                       + feat[yb, xa].float() * wy * (1 - wx)
+                       + feat[yb, xb].float() * wy * wx)     # (r,PH,PW,C)
+                val = val * (vy[:, :, iy, None, None]
+                             * vx[:, None, :, ix, None])
+                acc = val if acc is None else acc + val
+        outs.append(acc / count)
+    return torch.cat(outs)
+
+
+def roi_align_cuda(feat, rois, pooled_h=7, pooled_w=7, spatial_scale=0.125,
+                   sampling_ratio=2):
+    """Launch the CUDA RoIAlign kernel on the current stream.
+
+    feat: (H, W, C) contiguous float32 or bfloat16 CUDA tensor; rois: (R, 5)
+    contiguous float32 on the same device. Returns float32.
+    ``roi_align_cuda.launches`` counts the kernel launches."""
+    if sampling_ratio <= 0:
+        raise ValueError('roi_align_cuda: sampling_ratio {} is not '
+                         'positive'.format(sampling_ratio))
+    out, launched = launch_pool_forward(
+        'roi_align', feat, rois, 5, pooled_h, pooled_w, spatial_scale,
+        extra_ints=(sampling_ratio,), out_dtype=torch.float32)
+    roi_align_cuda.launches += launched
+    return out
+
+
+roi_align_cuda.launches = 0
 
 
 def roi_feature_boost(roi_feat, obn_scores):

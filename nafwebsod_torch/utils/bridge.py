@@ -24,6 +24,17 @@ _HEAD_LAYERS = {
 }
 # the context head's detection layer, in place of fc8d
 _CONTEXT_LAYERS = {'head.fc8d_frame': 'fc8d_frame'}
+# the fcn mask head (up to four convs) and the deeplab ASPP head. The 2x2
+# deconvolution's blob is (out, in, 2, 2) like every conv blob; its module
+# (models/seg_head.py Deconv2x2) turns it into conv_transpose2d's kernel.
+_MASK_LAYERS = {
+    **{'mask_head.fcn%d' % i: '_[mask]_fcn%d' % i for i in range(1, 5)},
+    'mask_head.conv5_mask': 'conv5_mask',
+    'mask_head.mask_fcn_logits': 'mask_fcn_logits',
+    **{'mask_head.%s_%d' % (name, k): '%s_%d' % (name, k)
+       for name in ('fc6', 'fc7', 'mask_fc8') for k in range(1, 5)},
+}
+_ALL_LAYERS = {**_HEAD_LAYERS, **_CONTEXT_LAYERS, **_MASK_LAYERS}
 
 
 def _layer_names(layers):
@@ -42,13 +53,13 @@ def _body_layers():
 def blob_names(model=None):
     """{Detector state-dict key: reference blob name}: of the noise-aware
     model, or of ``model``'s own parameters (the plain 2fc head has no
-    noisy tower; the context head has ``fc8d_frame`` and no ``fc8d``)."""
+    noisy tower; the context head has ``fc8d_frame`` and no ``fc8d``; a
+    mask head adds its own)."""
     if model is None:
         return _layer_names({**_body_layers(), **_HEAD_LAYERS})
     have = {key.rsplit('.', 1)[0] for key in model.state_dict()}
     return _layer_names({
-        path: blob for path, blob in {**_body_layers(), **_HEAD_LAYERS,
-                                      **_CONTEXT_LAYERS}.items()
+        path: blob for path, blob in {**_body_layers(), **_ALL_LAYERS}.items()
         if path in have})
 
 
@@ -57,8 +68,7 @@ def params_from_jax(params):
     arrays: HWIO convs, (in, out) FCs), for the blobs ``params`` holds. The
     port's layouts are the reference's: OIHW convs, (out, in) FCs."""
     state = {}
-    names = _layer_names({**_body_layers(), **_HEAD_LAYERS,
-                          **_CONTEXT_LAYERS})
+    names = _layer_names({**_body_layers(), **_ALL_LAYERS})
     for path, blob in names.items():
         if blob not in params:
             continue

@@ -6,8 +6,12 @@ tests/conftest.py:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the forwards (RoIPoolF, RoILoopPool) bitwise (max pooling
-selects an element, it rounds nothing); the backward bitwise with integer cotangents (small integers sum
-exactly in float32 in any order, so this checks the routing) and within
+selects an element, it rounds nothing); RoIAlign bitwise too (the kernel
+spells every float operation of the plain version in its order, with
+round-to-nearest intrinsics, so nothing is contracted into an FMA; NaN in
+the same places on a map with non-finite cells); the backward bitwise with
+integer cotangents (small integers sum exactly in float32 in any order, so
+this checks the routing) and within
 1e-5 |x| + 1e-6 sum|g| per cell with normal cotangents (both sides add
 with float atomics, in an order that changes from run to run; the sum of
 the magnitudes bounds every partial sum).
@@ -287,3 +291,91 @@ def test_context_streams_on_the_card_equal_the_plain_versions(card):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         assert torch.equal(g.cpu(), w)
+
+
+# RoIAlign edge rows on an (87, 119) map at scale 1/8: samples at exactly
+# -1, H and W (14 and 7 bins), boxes past and off the map, a sub-cell box,
+# an inverted box, padded rows.
+ALIGN_EDGE_ROIS = [
+    [0, 800, 600, 1200, 900], [0, -16, 256, 432, 704],
+    [0, 512, -16, 960, 432], [0, -16, 480, 208, 704],
+    [0, 736, -16, 960, 208], [0, 100.3, 100.7, 101.1, 102.9],
+    [0, 400, 300, 200, 100], [0, 2000, 2000, 2100, 2100],
+    [0, -500, -500, -100, -100], [0, 0, 0, 0, 0], [0, 0, 0, 0, 0]]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('kind', ['signed', 'non_finite'])
+@pytest.mark.parametrize('res,sr', [(14, 2), (7, 2), (7, 1), (5, 3)])
+@pytest.mark.parametrize('h,w,c,r', [(87, 119, 512, 2048),
+                                     (13, 9, 200, 64), (5, 6, 1, 7)])
+def test_roi_align_kernel_matches_plain_version(card, dtype, kind, res, sr,
+                                                h, w, c, r):
+    rng = np.random.RandomState(h * w + c + res)
+    feat = torch.from_numpy(rng.randn(h, w, c).astype(np.float32))
+    if kind == 'non_finite':
+        feat[h // 2, w // 2, 0] = float('nan')
+        feat[1, 2, c - 1] = float('inf')
+        feat[h - 1, w - 1, c // 2] = float('-inf')
+    feat = feat.to(card, dtype)
+    rois = torch.cat([
+        torch.from_numpy(_rois(rng, r, 8 * w, 8 * h)),
+        torch.tensor(ALIGN_EDGE_ROIS, dtype=torch.float32)]).to(card)
+    before = rp.roi_align_cuda.launches
+    got = rp.roi_align(feat, rois, res, res, 0.125, sr,
+                       out_dtype=torch.float32)
+    assert rp.roi_align_cuda.launches == before + 1
+    want = rp.roi_align_reference(feat, rois, res, res, 0.125, sr)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert got.shape == (r + len(ALIGN_EDGE_ROIS), res, res, c)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+    assert kind == 'non_finite' or not nan.any()
+    # the default output type is the map's: one rounding at the end
+    assert torch.equal(rp.roi_align(feat, rois[:9], res, res, 0.125, sr)[
+        ~nan[:9]], got[:9].to(dtype)[~nan[:9]])
+
+
+def test_roi_align_kernel_rejects_what_it_does_not_take(card):
+    feat = torch.zeros(8, 8, 4, device=card)
+    rois = torch.tensor([[0.0, 0, 0, 30, 30]], device=card)
+    assert rp.roi_align(feat, rois[:0]).shape == (0, 7, 7, 4)
+    with pytest.raises(ValueError):
+        rp.roi_align_cuda(feat.double(), rois)
+    with pytest.raises(ValueError):
+        rp.roi_align_cuda(feat.permute(1, 0, 2), rois)
+    with pytest.raises(ValueError):
+        rp.roi_align_cuda(feat, rois.cpu())
+    with pytest.raises(ValueError):
+        rp.roi_align_cuda(feat, rois[:, :4])
+    with pytest.raises(ValueError):
+        rp.roi_align_cuda(feat, rois, 7, 7, 0.125, 0)
+    with pytest.raises(NotImplementedError):
+        rp.roi_align(feat.clone().requires_grad_(True), rois)
+
+
+def test_mask_head_on_the_card_equals_the_plain_roi_align(card):
+    """forward_masks with the kernel and with the plain RoIAlign on the
+    same model: identical soft masks."""
+    from nafwebsod_torch.models import detector
+    model = detector.build_model(detector.ModelSpec(
+        num_classes=5, hidden_dim=16, box_head='vgg16_2fc', webly_on=False,
+        mask_on=True, mask_dim_reduced=8, compute_dtype='bfloat16'),
+        device=card)
+    gen = torch.Generator(device=card).manual_seed(0)
+    image = torch.randn(1, 96, 128, 3, device=card, generator=gen) * 20
+    rois = torch.tensor([[0, 4, 6, 90, 70], [0, 30, 20, 127, 95],
+                         [0, 0, 0, 0, 0]], dtype=torch.float32, device=card)
+    before = rp.roi_align_cuda.launches
+    got = model.forward_masks(image, rois)
+    assert rp.roi_align_cuda.launches == before + 1
+    kernel = rp.roi_align_cuda
+    rp.roi_align_cuda = lambda *a: rp.roi_align_reference(*a)
+    try:
+        want = model.forward_masks(image, rois)
+    finally:
+        rp.roi_align_cuda = kernel
+    assert got.shape == (3, 28, 28, 5) and torch.equal(got, want)

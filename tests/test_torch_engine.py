@@ -201,7 +201,9 @@ def test_test_net_over_a_roidb(tmp_path):
          'obn_scores': np.zeros((0, 1), np.float32)},
     ]
     pytest.importorskip('yaml')  # detections.pkl records the cfg as YAML
-    all_boxes = test_engine.test_net(model, roidb, output_dir=str(tmp_path))
+    all_boxes, all_segms, all_keyps = test_engine.test_net(
+        model, roidb, output_dir=str(tmp_path))
+    assert all_segms is None and all_keyps is None
     _assert_same_detections([all_boxes[j][0] for j in range(5)], want)
     assert all(all_boxes[j][1] == [] for j in range(5))
     saved = load_object(str(tmp_path / 'detections.pkl'))

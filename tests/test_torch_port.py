@@ -42,7 +42,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(' ', 1)
-    assert int(count) >= 36      # the data and evaluator modules too
+    assert int(count) >= 41      # the data, evaluator and seg modules too
     assert bad.strip() == '[]', proc.stdout
 
 
@@ -94,6 +94,102 @@ def test_chip_smoke_flagship_seed_blends_the_second_step():
         blends = [bool(build_minibatch(roidb, i, rng).get('mixup', False))
                   for i in range(4)]
         assert blends == [False, True, False, False]
+    finally:
+        port_config.reset_cfg()
+
+
+def test_every_seg_module_is_behind_the_import_fence():
+    """The fence above walks the package: the modules this family added
+    must be in it (a module that is never imported is never checked)."""
+    import pkgutil
+    import nafwebsod_torch
+    names = {m.name for m in pkgutil.walk_packages(nafwebsod_torch.__path__,
+                                                   'nafwebsod_torch.')}
+    for name in ('models.seg_head', 'ops.seg', 'ops.misc',
+                 'ops.permutohedral', 'utils.segms'):
+        assert 'nafwebsod_torch.' + name in names, name
+        imported = _imported_modules(*('nafwebsod_torch.' + name).split('.')[
+            :-1], name.split('.')[-1] + '.py')
+        assert not [m for m in imported if m and m.split('.')[0] in (
+            'jax', 'jaxlib', 'nafwebsod_tpu', 'cv2', 'yaml')], name
+    assert os.path.isfile(os.path.join(
+        REPO, 'nafwebsod_torch', 'ops', 'csrc', 'roi_align.cu'))
+
+
+@pytest.mark.parametrize('mask_head', ['fcn', 'deeplab'])
+def test_mask_entry_points_run_where_the_model_lives(mask_head,
+                                                     monkeypatch):
+    """``forward_masks``, ``forward_deeplab_masks`` and ``im_detect_mask``
+    make their tensors on the model's device, and the model is built
+    where ``utils.device.resolve_device`` says: the card, unless the
+    caller passes ``device='cpu'``."""
+    from nafwebsod_torch.engine import test as infer
+    from nafwebsod_torch.engine import test_engine
+    from nafwebsod_torch.utils import device as device_utils
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError):
+        device_utils.resolve_device(None)          # no card, no fallback
+    assert device_utils.resolve_device('cpu') == torch.device('cpu')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    assert device_utils.resolve_device(None).type == 'cuda'
+
+    asked = []
+    real = detector.resolve_device
+
+    def spy(device=None):
+        asked.append(device)
+        return real('cpu')
+
+    monkeypatch.setattr(detector, 'resolve_device', spy)
+    port_config.reset_cfg()
+    try:
+        port_config.merge_cfg_from_cfg(
+            port_config.SEG if mask_head == 'deeplab'
+            else port_config.SEG_FCN)
+        cfg = port_config.cfg
+        cfg.MODEL.NUM_CLASSES = 5
+        cfg.TPU.HEAD_HIDDEN_DIM = 8
+        cfg.MRCNN.DIM_REDUCED = 8
+        cfg.TPU.COMPUTE_DTYPE = 'float32'
+        cfg.TEST.SCALE = 48
+        cfg.TEST.MAX_SIZE = 64
+        model = test_engine.initialize_model_from_cfg()   # as a user calls
+        assert asked == [None]
+        # a device the tensors must follow: the meta device computes
+        # nothing, but refuses an operand that lives elsewhere
+        model = model.to('meta')
+        image = torch.zeros(1, 64, 64, 3, device='meta')
+        if mask_head == 'fcn':
+            monkeypatch.setattr(
+                'nafwebsod_torch.ops.roi_pool.roi_align',
+                lambda feat, rois, ph, pw, *a, **k: torch.zeros(
+                    (rois.shape[0], ph, pw, feat.shape[2]),
+                    device=feat.device))
+            out = model.forward_masks(
+                image, torch.zeros(3, 5, device='meta'))
+            assert out.device.type == 'meta' and out.shape == (3, 28, 28, 5)
+        else:
+            out = model.forward_deeplab_masks(image)
+            assert out.device.type == 'meta' and out.shape == (1, 7, 7, 5)
+        # im_detect_mask builds the blob and the rois on model.device
+        seen = []
+        on_cpu = test_engine.initialize_model_from_cfg(device='cpu')
+        assert asked[-1] == 'cpu'
+        fn = ('forward_masks' if mask_head == 'fcn'
+              else 'forward_deeplab_masks')
+        real_fn = getattr(on_cpu, fn)
+
+        def watch(*tensors):
+            seen.extend(t.device for t in tensors)
+            return real_fn(*tensors)
+
+        monkeypatch.setattr(on_cpu, fn, watch)
+        cls_boxes = [[]] + [np.array([[2, 3, 30, 40, 0.9]], np.float32)] * 4
+        segms = infer.im_detect_mask(
+            on_cpu, np.zeros((40, 50, 3), np.uint8), cls_boxes)
+        assert [len(s) for s in segms] == [0, 1, 1, 1, 1]
+        assert seen and all(d == on_cpu.device for d in seen)
     finally:
         port_config.reset_cfg()
 
