@@ -10,10 +10,14 @@ Phases, each of which fails the run with a non-zero exit:
      paths' shapes (an (87, 119, 512) map -- a 375x500 image at scale 688
      -- and 2048 RoIs with edge cases), with its time, the plain version's
      time and its bound: the RoIPoolF forward bitwise in float32 and
-     bfloat16; the RoIPoolF backward for 1 and 3 seed batches in both
-     types, bitwise with integer cotangents (the routing), within
-     1e-5 |x| + 1e-6 sum|g| per cell with normal ones (float atomics add in
-     another order on both sides), all zeros for zero cotangents; the
+     bfloat16, with and without its first-max index (the index bitwise
+     too), on a ReLU map and on a map with NaN and infinite cells; the
+     RoIPoolF backward (the scatter from that index) for 1 and 3 seed
+     batches in both types, bitwise with integer cotangents against the
+     plain scatter and the plain gradient by its definition (the routing),
+     within 1e-5 |x| + 1e-6 sum|g| per cell with normal ones (float atomics
+     add in another order than the plain version), all zeros for zero
+     cotangents, timed beside one scatter_add_; the
      RoILoopPool forward bitwise in both types on the frame and the context
      rois of the same proposals plus edge rows, on a ReLU map, a signed map,
      an all-negative map (all zeros out) and a map with NaN and infinite
@@ -74,6 +78,9 @@ NaN and infinite cells (NaN in the same places).
 ``--profile`` adds stage times and torch.profiler's kernel tables for one
 image, one flagship train step and one CSC train step, one context image
 and one context train step, one SEG_FCN image and one SEG_FCN train step.
+Every counted run also checks that the RoIPoolF forward wrote its
+first-max index in each of its launches where the backward ran (CSC and SEG
+training) and in none elsewhere (inference, frozen-body training).
 The last lines are the kernel table (JSON), the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and the result (JSON).
 Imports nothing of JAX. Needs one card; exits non-zero without one.
@@ -107,7 +114,7 @@ FLAGSHIP_TRAIN_SEED = 3
 # (up to 1e4) times 1e-3 kills every ReLU of the random head in one step,
 # after which all scores are uniform and every saliency map is zero.
 TRAIN_BASE_LR = 1e-5
-# Kernel against plain pool backward inside the CSC step. Both sum floats
+# Kernels against the plain pool inside the CSC step. Both sum floats
 # with atomics, in an order that changes from run to run, and round the
 # map's gradient to bfloat16 before 13 bfloat16 convolutions: a cell at the
 # 0.1 threshold may fall on either side. At most this share of the
@@ -211,28 +218,54 @@ def pool_bound_ms(feat, rois, others):
 
 
 def phase_k1():
+    """The RoIPoolF forward kernel against its plain version, without and
+    with the first-max index, on a ReLU map and on a map with NaN and
+    infinite cells."""
     from nafwebsod_torch.ops import roi_pool as rp
     rng = np.random.RandomState(0)
     rois = torch.from_numpy(k1_rois(rng, 2048, 917, 688)).cuda()
     base = torch.relu(torch.from_numpy(
         rng.randn(87, 119, 512).astype(np.float32))).cuda()
+    non_finite = base.clone()
+    non_finite[40, 60, 7] = float('nan')     # bins that pool to 0 and get
+    non_finite[20, 30, 9] = float('inf')     # no index
+    non_finite[50, 70, 11] = float('-inf')   # loses against the others
     row = None
     for dtype in (torch.float32, torch.bfloat16):
+        for kind, m in (('relu', base), ('non-finite', non_finite)):
+            feat = m.to(dtype)
+            got, index = rp.roi_pool_cuda(feat, rois, argmax=True)
+            want = rp.roi_pool_reference(feat, rois)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.equal(got, want):
+                raise AssertionError('K1 %s (%s map) differs from the plain '
+                                     'version: max abs err %g' % (dtype, kind,
+                                                                  err))
+            if not torch.equal(index, rp.roi_pool_argmax_reference(feat,
+                                                                   rois)):
+                raise AssertionError('K1 %s (%s map): the first-max index '
+                                     'differs from the plain version' % (
+                                         dtype, kind))
+            if not torch.equal(rp.roi_pool_cuda(feat, rois), want):
+                raise AssertionError('K1 %s (%s map) without the index '
+                                     'differs from the plain version' % (
+                                         dtype, kind))
         feat = base.to(dtype)
-        got = rp.roi_pool_cuda(feat, rois)
-        want = rp.roi_pool_reference(feat, rois)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        if not torch.equal(got, want):
-            raise AssertionError('K1 %s differs from the plain version: '
-                                 'max abs err %g' % (dtype, err))
+        got, index = rp.roi_pool_cuda(feat, rois, argmax=True)
         ms = time_ms(lambda: rp.roi_pool_cuda(feat, rois), 50)
+        ms_index = time_ms(lambda: rp.roi_pool_cuda(feat, rois, argmax=True),
+                           50)
         plain_ms = time_ms(lambda: rp.roi_pool_reference(feat, rois), 3)
         bound_ms, bound_by = pool_bound_ms(feat, rois, [got])
-        log('K1 %s (87,119,512) R=2048: equal, kernel %.4f ms, plain %.4f '
-            'ms, bound %.4f ms (%s), empty-bin share %.3f' % (
-                str(dtype), ms, plain_ms, bound_ms, bound_by,
-                (want == 0).all(-1).float().mean().item()))
+        bound_index_ms, _ = pool_bound_ms(feat, rois, [got, index])
+        log('K1 %s (87,119,512) R=2048: equal on the relu and non-finite '
+            'maps (the index too), %d channels a load, kernel %.4f ms '
+            '(with the index %.4f ms), plain %.4f ms, bound %.4f ms (%s; with '
+            'the index %.4f ms), empty-bin share %.3f' % (
+                str(dtype), rp.channels_per_load(feat), ms, ms_index,
+                plain_ms, bound_ms, bound_by, bound_index_ms,
+                (index == -1).all(-1).float().mean().item()))
         if dtype == torch.bfloat16:  # the flagship's compute dtype
             row = {'name': 'roi_pool_fwd', 'route': 'cuda',
                    'source': 'nafwebsod_torch/ops/csrc/roi_pool.cu',
@@ -241,12 +274,33 @@ def phase_k1():
                    'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
                    'bound_ms': bound_ms, 'bound_by': bound_by,
                    # no single PyTorch call computes RoIPoolF
-                   'library_ms': None}
+                   'library_ms': None,
+                   # the launches of CSC and SEG training write the index
+                   'ms_with_index': ms_index,
+                   'bound_ms_with_index': bound_index_ms}
     return row
 
 
+def scatter_bound_ms(index, g, dfeat):
+    """The bound of the scatter's interface, which is not the function's:
+    the larger of bytes / memory rate (the saved index and g read once,
+    dfeat written once) and this run's additions (nonzero cotangents with
+    an index) / the float32 rate."""
+    nbytes = (index.numel() * 4 + g.numel() * g.element_size()
+              + dfeat.numel() * 4)
+    adds = ((index >= 0)[None] & (g != 0)).sum().item()
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = adds / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
+                                   else 'operations')
+
+
 def phase_k3():
-    """The RoIPoolF backward kernel against its plain version."""
+    """The RoIPoolF backward kernel (the scatter from K1's first-max index)
+    against its plain version. Its bound is the function's (map, RoIs and g
+    in, dfeat out, as for the first design, which read no index); the
+    index's own cost shows in ``ms_with_forward_index``: K1 with the index
+    and K3 together, less K1 without it."""
     from nafwebsod_torch.ops import roi_pool as rp
     rng = np.random.RandomState(0)
     rois = torch.from_numpy(k1_rois(rng, 2048, 917, 688)).cuda()
@@ -258,48 +312,73 @@ def phase_k3():
                             .astype(np.float32)).cuda()
     normal = torch.randn(3, 2048, 7, 7, 512, device='cuda',
                          generator=torch.Generator('cuda').manual_seed(0))
+    h, w, c = base.shape
+    # the library call's flat index: the channel's cell, or a spare slot
+    chan = torch.arange(c, device='cuda')
     row = None
     for dtype in (torch.float32, torch.bfloat16):
         feat = base.to(dtype)
+        _, index = rp.roi_pool_cuda(feat, rois, argmax=True)
+        if not torch.equal(index, rp.roi_pool_argmax_reference(feat, rois)):
+            raise AssertionError('K3 %s: the forward\'s index differs from '
+                                 'the plain version' % dtype)
+        flat = torch.where(index >= 0, index.long() * c + chan,
+                           h * w * c).reshape(1, -1)
         for seeds in (1, 3):
             g_int = ints[:seeds].to(dtype)
-            got = rp.roi_pool_backward_cuda(feat, rois, g_int)
-            want = rp.roi_pool_backward_reference(feat, rois, g_int)
+            got = rp.roi_pool_backward_cuda(index, g_int, h, w)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
+            if not (torch.equal(got, rp.roi_pool_scatter_reference(
+                    index, g_int, h, w)) and torch.equal(
+                        got, rp.roi_pool_backward_reference(feat, rois,
+                                                            g_int))):
                 raise AssertionError(
-                    'K3 %s G=%d routes differently from the plain version: '
-                    'max abs err %g' % (dtype, seeds,
-                                        (got - want).abs().max().item()))
+                    'K3 %s G=%d routes differently from the plain version'
+                    % (dtype, seeds))
             if not got.any():
                 raise AssertionError('K3 returned all zeros')
             g = normal[:seeds].to(dtype)
-            got = rp.roi_pool_backward_cuda(feat, rois, g)
-            want = rp.roi_pool_backward_reference(feat, rois, g)
+            got = rp.roi_pool_backward_cuda(index, g, h, w)
+            want = rp.roi_pool_scatter_reference(index, g, h, w)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             # two float32 sums of the same terms in different orders: the
             # sum of the terms' magnitudes bounds every partial sum
-            mass = rp.roi_pool_backward_reference(feat, rois, g.abs())
+            mass = rp.roi_pool_scatter_reference(index, g.abs(), h, w)
             if ((got - want).abs() > 1e-5 * want.abs() + 1e-6 * mass).any():
                 raise AssertionError('K3 %s G=%d differs from the plain '
                                      'version: max abs err %g' % (
                                          dtype, seeds, err))
-            if rp.roi_pool_backward_cuda(feat, rois,
-                                         torch.zeros_like(g)).any():
+            zeros = torch.zeros_like(g)
+            if rp.roi_pool_backward_cuda(index, zeros, h, w).any():
                 raise AssertionError('K3: zero cotangents gave a gradient')
-            ms = time_ms(lambda: rp.roi_pool_backward_cuda(feat, rois, g), 50)
+            ms = time_ms(lambda: rp.roi_pool_backward_cuda(index, g, h, w),
+                         50)
             zero_ms = time_ms(lambda: rp.roi_pool_backward_cuda(
-                feat, rois, torch.zeros_like(g)), 10)
-            plain_ms = time_ms(lambda: rp.roi_pool_backward_reference(
-                feat, rois, g), 2)
+                index, zeros, h, w), 10)
+            plain_ms = time_ms(lambda: rp.roi_pool_scatter_reference(
+                index, g, h, w), 3)
+            # one scatter_add_ of float32 cotangents through a prepared
+            # int64 flat index (the spare slot takes the -1 entries)
+            lib_index = flat.expand(seeds, -1).contiguous()
+            gf = g.float().reshape(seeds, -1)
+            library_ms = time_ms(lambda: torch.zeros(
+                seeds, h * w * c + 1, device='cuda').scatter_add_(
+                    1, lib_index, gf), 20)
+            del lib_index, gf
+            fwd_ms = time_ms(lambda: rp.roi_pool_cuda(feat, rois), 50)
+            pair_ms = time_ms(lambda: rp.roi_pool_backward_cuda(
+                rp.roi_pool_cuda(feat, rois, argmax=True)[1], g, h, w), 50)
             bound_ms, bound_by = pool_bound_ms(feat, rois, [g, got])
+            bound_index_ms, _ = scatter_bound_ms(index, g, got)
             log('K3 %s (87,119,512) R=2048 G=%d: integer cotangents equal, '
                 'normal ones max abs err %.3g (within 1e-5 |x| + 1e-6 sum|g|), '
-                'kernel '
-                '%.4f ms (zero cotangents %.4f ms), plain %.4f ms, bound '
-                '%.4f ms (%s)' % (str(dtype), seeds, err, ms, zero_ms,
-                                  plain_ms, bound_ms, bound_by))
+                'kernel %.4f ms (zero cotangents %.4f ms; with the index\'s '
+                'cost in K1 %.4f ms), plain %.4f ms, scatter_add_ %.4f ms, '
+                'bound %.4f ms (%s; of the index interface %.4f ms)' % (
+                    str(dtype), seeds, err, ms, zero_ms, pair_ms - fwd_ms,
+                    plain_ms, library_ms, bound_ms, bound_by,
+                    bound_index_ms))
             if dtype == torch.bfloat16 and seeds == 1:  # the CSC step's call
                 row = {'name': 'roi_pool_bwd', 'route': 'cuda',
                        'source': 'nafwebsod_torch/ops/csrc/roi_pool_bwd.cu',
@@ -307,8 +386,9 @@ def phase_k3():
                            'nafwebsod_tpu/ops/pallas/roi_pool_pallas.py:384',
                        'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
                        'bound_ms': bound_ms, 'bound_by': bound_by,
-                       # no single PyTorch call computes this gradient
-                       'library_ms': None}
+                       'library_ms': library_ms,
+                       'ms_with_forward_index': pair_ms - fwd_ms,
+                       'bound_ms_index_interface': bound_index_ms}
     return row
 
 
@@ -574,12 +654,12 @@ def phase_slice():
     test_net(model, roidb[:1])                   # warm-up image
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rp.roi_pool_cuda.launches = 0
+    reset_counts()
     t0 = time.time()
     all_boxes, _, _ = test_net(model, roidb)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = rp.roi_pool_cuda.launches
+    launches = read_counts()[0]
     if launches != len(roidb):
         raise AssertionError('K1 launched %d times for %d images' % (
             launches, len(roidb)))
@@ -594,7 +674,7 @@ def phase_slice():
 
     # phase 5: the same run with the pool forced to the plain version
     kernel = rp.roi_pool_cuda
-    rp.roi_pool_cuda = lambda *a: rp.roi_pool_reference(*a)
+    rp.roi_pool_cuda = lambda *a, argmax=False: rp.roi_pool_reference(*a)
     try:
         plain_boxes, _, _ = test_net(model, roidb)
     finally:
@@ -627,18 +707,35 @@ def reset_counts():
     from nafwebsod_torch.ops import context as ctx
     from nafwebsod_torch.ops import roi_pool as rp
     rp.roi_pool_cuda.launches = 0
+    rp.roi_pool_cuda.argmax_launches = 0
     rp.roi_pool_backward_cuda.launches = 0
     ctx.roi_loop_pool_cuda.launches = 0
     rp.roi_align_cuda.launches = 0
 
 
+# RoIPoolF forward launches that wrote the first-max index, one entry per
+# counted run (read_counts)
+INDEX_LAUNCHES = []
+
+
 def read_counts():
     """Launches of (RoIPoolF forward, RoIPoolF backward, RoILoopPool,
-    RoIAlign)."""
+    RoIAlign) since reset_counts(). Fails unless the RoIPoolF forward wrote
+    its first-max index exactly where a backward reads it: in every launch
+    of a run with RoIPoolF backward launches (the CPG seeds of CSC and SEG
+    training), in none of any other run (inference, frozen-body
+    training)."""
     from nafwebsod_torch.ops import context as ctx
     from nafwebsod_torch.ops import roi_pool as rp
-    return (rp.roi_pool_cuda.launches, rp.roi_pool_backward_cuda.launches,
-            ctx.roi_loop_pool_cuda.launches, rp.roi_align_cuda.launches)
+    counts = (rp.roi_pool_cuda.launches, rp.roi_pool_backward_cuda.launches,
+              ctx.roi_loop_pool_cuda.launches, rp.roi_align_cuda.launches)
+    index = rp.roi_pool_cuda.argmax_launches
+    if index != (counts[0] if counts[1] else 0):
+        raise AssertionError('RoIPoolF forward wrote its index in %d of %d '
+                             'launches with %d backward launches' % (
+                                 index, counts[0], counts[1]))
+    INDEX_LAUNCHES.append(index)
+    return counts
 
 
 def check_leaves_moved(model, before, unmoved=(), may_stay=()):
@@ -826,7 +923,7 @@ def phase_train_csc():
     log('CSC past CSC_MAX_ITER (iter %d): no K3 launch, loss_cls_neg %.2g'
         % (late, late_records[0]['loss_cls_neg']))
 
-    # the trained state, one image: kernel against plain pool backward
+    # the trained state, one image: the kernels against the plain pool
     batch = device_batch(model, build_minibatch(
         roidb, 0, np.random.RandomState(5)))
     k3 = rp.roi_pool_backward_cuda.launches
@@ -834,19 +931,30 @@ def phase_train_csc():
     if rp.roi_pool_backward_cuda.launches != k3 + 2 or not keep_k.any():
         raise AssertionError('expected 2 K3 launches and a kept map, got '
                              'keep %s' % keep_k.tolist())
-    kernel = rp.roi_pool_backward_cuda
+
+    # the plain run finds the first max cells from the map itself
+    def plain_pool(feat, rois, *args, argmax=False):
+        out = rp.roi_pool_reference(feat, rois, *args)
+        if not argmax:
+            return out
+        return out, rp.roi_pool_argmax_reference(feat, rois, *args)
+
+    kernels = rp.roi_pool_cuda, rp.roi_pool_backward_cuda
+    k1 = rp.roi_pool_cuda.launches
+    rp.roi_pool_cuda = plain_pool
     rp.roi_pool_backward_cuda = (
-        lambda *a: rp.roi_pool_backward_reference(*a))
+        lambda *a: rp.roi_pool_scatter_reference(*a))
     try:
         maps_p, keep_p, w_p = csc_maps_and_weights(model, batch, 9)
     finally:
-        rp.roi_pool_backward_cuda = kernel
-    if kernel.launches != k3 + 2:
-        raise AssertionError('the plain run launched the kernel')
+        rp.roi_pool_cuda, rp.roi_pool_backward_cuda = kernels
+    if kernels[0].launches != k1 or kernels[1].launches != k3 + 2:
+        raise AssertionError('the plain run launched a kernel')
     thr = spec.csc_fg_threshold
     binary_share = ((maps_k >= thr) != (maps_p >= thr)).float().mean().item()
     weight_share = ((w_k - w_p).abs() > 0.05).float().mean().item()
-    log('CSC, kernel against plain pool backward (image 0, dropout seed 9): '
+    log('CSC, kernels against the plain pool forward and backward (image 0, '
+        'dropout seed 9): '
         'maps max abs diff %.3g, binarised cells that differ %.3g (limit '
         '%.3g), weights max abs diff %.3g, weights beyond 0.05 %.3g (limit '
         '%.3g), maps kept %s, foreground share %.3f, weights not 1: %.3f, '
@@ -859,8 +967,8 @@ def phase_train_csc():
     if (keep_k.tolist() != keep_p.tolist()
             or binary_share > CSC_MAP_TOL['binary_share']
             or weight_share > CSC_MAP_TOL['weight_share']):
-        raise AssertionError('CSC weights differ between the kernel and '
-                             'the plain pool backward')
+        raise AssertionError('CSC weights differ between the kernels and '
+                             'the plain pool')
 
     # at the configured tau only a labelled class the model scores at tau
     # or more is a seed: label the untrained model's highest and lowest
@@ -1551,6 +1659,11 @@ def profile_train_step(name, model, opt_state, roidb):
            100.0 * busy / wall_us, sum(k[1] for k in kernels)))
     for k in kernels[:14]:
         log(('  %10.1f us %5d x  %s' % k)[:150])
+    # the port's own kernels, wherever they rank
+    log('%s step: the port\'s kernels: %s' % (name, '; '.join(
+        '%s %.1f us in %d launches, %.2f%% of the kernel time' % (
+            key.split('::', 1)[1].split('(')[0], us, n, 100.0 * us / busy)
+        for us, n, key in kernels if '(anonymous namespace)::roi_' in key)))
 
 
 def main():
@@ -1581,6 +1694,9 @@ def main():
         csc_bwd = k3['launches']
         k3['launches'] = csc_bwd + deeplab_bwd
         k4['launches'] = fcn_infer_align + fcn_train_align + box_align
+        log('K1 launches that wrote the first-max index, by counted run: '
+            '%s (%d; every K1 launch of the runs with K3 launches, none of '
+            'the others)' % (INDEX_LAUNCHES, sum(INDEX_LAUNCHES)))
         log('K1 launches by path: flagship inference %d, flagship training '
             '%d, CSC training %d, context inference %d, context training '
             '%d, SEG_FCN inference %d, SEG_FCN training %d, SEG inference '

@@ -9,10 +9,12 @@ dtype.
 ``roi_pool`` launches the hand-written CUDA kernel (``csrc/roi_pool.cu``,
 the port of the TPU kernel ``roi_pool_pallas``) for a CUDA tensor and uses
 the plain version ``roi_pool_reference`` for a CPU tensor. When the map
-needs a gradient it goes through the ``RoIPoolF`` autograd function, whose
-backward launches ``csrc/roi_pool_bwd.cu`` (the port of
-``roi_pool_pallas_bwd``) for a CUDA tensor and uses
-``roi_pool_backward_reference`` for a CPU tensor. There is no fallback: a
+needs a gradient it goes through the ``RoIPoolF`` autograd function: its
+forward also writes each output's first max cell (the kernel's index
+output, or ``roi_pool_argmax_reference`` on the CPU) and saves it, and its
+backward scatters the cotangents to those cells with ``csrc/roi_pool_bwd.cu``
+(the port of ``roi_pool_pallas_bwd``) for a CUDA tensor and with
+``roi_pool_scatter_reference`` for a CPU tensor. There is no fallback: a
 CUDA tensor a kernel does not take raises.
 
 ``roi_align`` is Detectron's legacy RoIAlign with a static sampling grid;
@@ -45,13 +47,20 @@ def roi_pool(feat, rois, pooled_h=7, pooled_w=7, spatial_scale=0.125):
     return _roi_pool_forward(feat, rois, pooled_h, pooled_w, spatial_scale)
 
 
-def _roi_pool_forward(feat, rois, pooled_h, pooled_w, spatial_scale):
+def _roi_pool_forward(feat, rois, pooled_h, pooled_w, spatial_scale,
+                      argmax=False):
+    """The pooled map, and with ``argmax`` also its first-max index."""
     if feat.is_cuda:
-        return roi_pool_cuda(feat, rois, pooled_h, pooled_w, spatial_scale)
+        return roi_pool_cuda(feat, rois, pooled_h, pooled_w, spatial_scale,
+                             argmax=argmax)
     if feat.device.type != 'cpu':
         raise ValueError('roi_pool: unsupported device {}'.format(
             feat.device))
-    return roi_pool_reference(feat, rois, pooled_h, pooled_w, spatial_scale)
+    out = roi_pool_reference(feat, rois, pooled_h, pooled_w, spatial_scale)
+    if not argmax:
+        return out
+    return out, roi_pool_argmax_reference(feat, rois, pooled_h, pooled_w,
+                                          spatial_scale)
 
 
 def _bin_edges(lo, extent, pooled, size):
@@ -125,15 +134,9 @@ def roi_pool_reference(feat, rois, pooled_h=7, pooled_w=7,
 _SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 
 
-def launch_pool_forward(name, feat, rois, roi_cols, pooled_h, pooled_w,
-                        spatial_scale, extra_ints=(), out_dtype=None):
-    """Check the arguments and launch the forward kernel of
-    ``csrc/<name>.cu`` (``<name>_fwd_f32`` / ``<name>_fwd_bf16``) on the
-    current stream. feat: (H, W, C) contiguous float32 or bfloat16 CUDA
-    tensor; rois: (R, roi_cols) contiguous float32 on the same device;
-    ``extra_ints`` go to the kernel after ``pooled_w``. Returns (out
-    (R, pooled_h, pooled_w, C) in ``out_dtype``, feat's type when None, and
-    whether a kernel was launched: not for an empty output)."""
+def check_pool_args(name, feat, rois, roi_cols):
+    """Raise unless feat is a contiguous (H, W, C) float32 or bfloat16 CUDA
+    map and rois a contiguous (R, roi_cols) float32 tensor beside it."""
     if not feat.is_cuda:
         raise ValueError('{}_cuda needs a CUDA tensor'.format(name))
     if feat.dtype not in _SUFFIX:
@@ -149,96 +152,148 @@ def launch_pool_forward(name, feat, rois, roi_cols, pooled_h, pooled_w,
         raise ValueError('{}_cuda: rois must be a contiguous (R, {}) '
                          'float32 tensor on {}'.format(name, roi_cols,
                                                        feat.device))
+
+
+def _kernel_fn(name, symbol, argtypes):
+    """(ctypes function ``symbol`` of ``csrc/<name>.cu``, its error-string
+    function)."""
+    lib = _build.load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    err_str = getattr(lib, name + '_error_string')
+    err_str.argtypes = [ctypes.c_int]
+    err_str.restype = ctypes.c_char_p
+    return fn, err_str
+
+
+def launch_pool_forward(name, feat, rois, roi_cols, pooled_h, pooled_w,
+                        spatial_scale, extra_ints=(), out_dtype=None,
+                        extra_outs=()):
+    """Check the arguments and launch the forward kernel of
+    ``csrc/<name>.cu`` (``<name>_fwd_f32`` / ``<name>_fwd_bf16``) on the
+    current stream. feat: (H, W, C) contiguous float32 or bfloat16 CUDA
+    tensor; rois: (R, roi_cols) contiguous float32 on the same device;
+    ``extra_outs`` (tensors, or None for a null pointer) go to the kernel
+    after ``out``, ``extra_ints`` after ``pooled_w``. Returns (out
+    (R, pooled_h, pooled_w, C) in ``out_dtype``, feat's type when None, and
+    whether a kernel was launched: not for an empty output)."""
+    check_pool_args(name, feat, rois, roi_cols)
     h, w, c = feat.shape
     r = rois.shape[0]
     out = torch.empty((r, pooled_h, pooled_w, c),
                       dtype=out_dtype or feat.dtype, device=feat.device)
     if r == 0 or c == 0:
         return out, False
-    lib = _build.load(name)
-    fn = getattr(lib, '{}_fwd_{}'.format(name, _SUFFIX[feat.dtype]))
-    fn.argtypes = ([ctypes.c_void_p] * 3 +
-                   [ctypes.c_int] * (6 + len(extra_ints)) +
-                   [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err_str = getattr(lib, name + '_error_string')
-    err_str.argtypes = [ctypes.c_int]
-    err_str.restype = ctypes.c_char_p
+    fn, err_str = _kernel_fn(
+        name, '{}_fwd_{}'.format(name, _SUFFIX[feat.dtype]),
+        [ctypes.c_void_p] * (3 + len(extra_outs)) +
+        [ctypes.c_int] * (6 + len(extra_ints)) +
+        [ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(feat.device).cuda_stream
-    rc = fn(feat.data_ptr(), rois.data_ptr(), out.data_ptr(), h, w, c, r,
-            pooled_h, pooled_w, *extra_ints, spatial_scale, stream)
+    rc = fn(feat.data_ptr(), rois.data_ptr(), out.data_ptr(),
+            *(t if t is None else t.data_ptr() for t in extra_outs),
+            h, w, c, r, pooled_h, pooled_w, *extra_ints, spatial_scale,
+            stream)
     if rc != 0:
         raise RuntimeError('{} CUDA launch failed: {}'.format(
             name, err_str(rc).decode()))
     return out, True
 
 
-def roi_pool_cuda(feat, rois, pooled_h=7, pooled_w=7, spatial_scale=0.125):
+def channels_per_load(feat):
+    """How many channels a thread of the RoIPoolF forward kernel reads at
+    once: the most of 16 bytes (8 bfloat16 or 4 float32 channels) that
+    divides a cell's C channels and the map's base address, down to one
+    channel. A map whose C or base address does not suit 16-byte loads
+    still runs in the kernel, with narrower loads."""
+    size = feat.element_size()
+    n = 16 // size
+    while n > 1 and (feat.shape[-1] % n or feat.data_ptr() % (n * size)):
+        n //= 2
+    return n
+
+
+def roi_pool_cuda(feat, rois, pooled_h=7, pooled_w=7, spatial_scale=0.125,
+                  argmax=False):
     """Launch the CUDA RoIPoolF kernel on the current stream.
 
-    feat: (H, W, C) contiguous float32 or bfloat16 CUDA tensor; rois: (R, 5)
-    contiguous float32 on the same device. ``roi_pool_cuda.launches``
-    counts the kernel launches."""
-    out, launched = launch_pool_forward('roi_pool', feat, rois, 5, pooled_h,
-                                        pooled_w, spatial_scale)
+    feat: (H, W, C) contiguous float32 or bfloat16 CUDA tensor, any C and
+    any base address (``channels_per_load`` says which loads the kernel
+    uses); rois: (R, 5) contiguous float32 on the same device. Returns the
+    pooled map, and with ``argmax`` the pair (pooled map, first-max index
+    (R, pooled_h, pooled_w, C) int32, flat y * W + x, -1 where no gradient
+    flows). ``roi_pool_cuda.launches`` counts the kernel launches,
+    ``roi_pool_cuda.argmax_launches`` those that wrote the index."""
+    check_pool_args('roi_pool', feat, rois, 5)
+    index = (torch.empty((rois.shape[0], pooled_h, pooled_w, feat.shape[2]),
+                         dtype=torch.int32, device=feat.device)
+             if argmax else None)
+    out, launched = launch_pool_forward(
+        'roi_pool', feat, rois, 5, pooled_h, pooled_w, spatial_scale,
+        extra_ints=(channels_per_load(feat),), extra_outs=(index,))
     roi_pool_cuda.launches += launched
-    return out
+    roi_pool_cuda.argmax_launches += launched and argmax
+    return (out, index) if argmax else out
 
 
 roi_pool_cuda.launches = 0
+roi_pool_cuda.argmax_launches = 0
 
 
-def roi_pool_backward(feat, rois, g, pooled_h=7, pooled_w=7,
-                      spatial_scale=0.125):
-    """RoIPoolF gradient for G seed batches: g (G, R, PH, PW, C) ->
-    dfeat (G, H, W, C) float32. The kernel for a CUDA map, the plain
-    version for a CPU map."""
-    if feat.is_cuda:
-        return roi_pool_backward_cuda(feat, rois, g, pooled_h, pooled_w,
-                                      spatial_scale)
-    if feat.device.type != 'cpu':
+def roi_pool_backward(argmax, g, height, width):
+    """RoIPoolF gradient for G seed batches from the forward's first-max
+    index: argmax (R, PH, PW, C) int32, g (G, R, PH, PW, C) -> dfeat
+    (G, height, width, C) float32. The kernel for a CUDA index, the plain
+    version for a CPU one."""
+    if argmax.is_cuda:
+        return roi_pool_backward_cuda(argmax, g, height, width)
+    if argmax.device.type != 'cpu':
         raise ValueError('roi_pool_backward: unsupported device {}'.format(
-            feat.device))
-    return roi_pool_backward_reference(feat, rois, g, pooled_h, pooled_w,
-                                       spatial_scale)
+            argmax.device))
+    return roi_pool_scatter_reference(argmax, g, height, width)
 
 
 class RoIPoolF(torch.autograd.Function):
-    """RoIPoolF with its argmax-scatter gradient. Saves (feat, rois) and
-    recomputes each bin's first max in the backward, as the JAX package's
-    ``custom_vjp`` does."""
+    """RoIPoolF with its argmax-scatter gradient. The forward writes each
+    output's first max cell beside the pooled map and saves that index,
+    (R, PH, PW, C) int32 -- 4 bytes per output, held until the graph is
+    freed -- instead of the map; every backward (one per CPG seed and one
+    for the loss) scatters its cotangents through it."""
 
     @staticmethod
     def forward(ctx, feat, rois, pooled_h, pooled_w, spatial_scale):
-        ctx.save_for_backward(feat, rois)
-        ctx.pool_args = (pooled_h, pooled_w, spatial_scale)
-        return _roi_pool_forward(feat, rois, pooled_h, pooled_w,
-                                 spatial_scale)
+        out, argmax = _roi_pool_forward(feat, rois, pooled_h, pooled_w,
+                                        spatial_scale, argmax=True)
+        ctx.save_for_backward(argmax)
+        ctx.map_shape = (feat.shape[0], feat.shape[1], feat.dtype)
+        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        feat, rois = ctx.saved_tensors
-        dfeat = roi_pool_backward(feat, rois, g[None].contiguous(),
-                                  *ctx.pool_args)[0]
-        return dfeat.to(feat.dtype), None, None, None, None
+        argmax, = ctx.saved_tensors
+        h, w, dtype = ctx.map_shape
+        dfeat = roi_pool_backward(argmax, g[None].contiguous(), h, w)[0]
+        return dfeat.to(dtype), None, None, None, None
 
 
-def roi_pool_backward_reference(feat, rois, g, pooled_h=7, pooled_w=7,
-                                spatial_scale=0.125, max_elements=1 << 25):
-    """Plain-PyTorch RoIPoolF gradient: per bin the first max cell in
-    row-major order (the least linear index among the cells equal to the
-    max -- ``torch.argmax`` does not promise the first index on every
-    backend), then ``index_add_`` of the cotangents into float32. An empty
-    bin and a bin whose max is not finite pass nothing back. Works on
-    chunks of RoIs whose gathered windows hold at most ``max_elements``
-    values."""
+def roi_pool_argmax_reference(feat, rois, pooled_h=7, pooled_w=7,
+                              spatial_scale=0.125, max_elements=1 << 25):
+    """Plain-PyTorch first-max index of RoIPoolF: per bin and channel the
+    first max cell in row-major order (the least linear index among the
+    cells equal to the max -- ``torch.argmax`` does not promise the first
+    index on every backend) as int32 flat y * W + x, and -1 where no
+    gradient flows: an empty bin, a NaN in the bin, an infinite max or a
+    bin of -inf cells (the outputs the forward maps to 0). Returns
+    (R, pooled_h, pooled_w, C). Works on chunks of RoIs whose gathered
+    windows hold at most ``max_elements`` values."""
     h, w, c = feat.shape
-    n_seeds, r = g.shape[:2]
-    dfeat = torch.zeros((n_seeds, h * w * c), dtype=torch.float32,
+    r = rois.shape[0]
+    argmax = torch.full((r, pooled_h, pooled_w, c), -1, dtype=torch.int32,
                         device=feat.device)
     if r == 0 or c == 0:
-        return dfeat.view(n_seeds, h, w, c)
+        return argmax
     q = _round_half_away(rois[:, 1:5].float() * spatial_scale).long()
     x1, y1, x2, y2 = q.unbind(1)
     hs, he = _bin_edges(y1, (y2 - y1 + 1).clamp(min=1), pooled_h, h)
@@ -249,10 +304,8 @@ def roi_pool_backward_reference(feat, rois, g, pooled_h=7, pooled_w=7,
     dx = torch.arange(mbw, device=feat.device)
     k = mbh * mbw
     order = torch.arange(k, device=feat.device)[:, None]
-    chan = torch.arange(c, device=feat.device)
     chunk = max(1, max_elements // (pooled_h * pooled_w * k * c))
     featf = feat.float()
-    gf = g.float()
     for i in range(0, r, chunk):
         sl = slice(i, i + chunk)
         ys = (hs[sl, :, None] + dy)[:, :, None, :, None]    # (r,PH,1,MBH,1)
@@ -270,71 +323,83 @@ def roi_pool_backward_reference(feat, rois, g, pooled_h=7, pooled_w=7,
                             order, k).amin(dim=3)            # (r,PH,PW,C)
         ok = torch.isfinite(m) & (first < k)
         best = cell.gather(3, first.clamp(max=k - 1))       # (r,PH,PW,C)
-        index = (best * c + chan).reshape(-1)
-        src = torch.where(ok, gf[:, sl], gf.new_zeros(())).reshape(
-            n_seeds, -1)
-        dfeat.index_add_(1, index, src)
-    return dfeat.view(n_seeds, h, w, c)
+        argmax[sl] = torch.where(ok, best, -1).to(torch.int32)
+    return argmax
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 +
-                 [ctypes.c_float, ctypes.c_void_p])
-
-
-def _bwd_kernel_fn(feat_dtype, g_dtype):
-    lib = _build.load('roi_pool_bwd')
-    fn = getattr(lib, 'roi_pool_bwd_{}_{}'.format(_SUFFIX[feat_dtype],
-                                                  _SUFFIX[g_dtype]))
-    fn.argtypes = _BWD_ARGTYPES
-    fn.restype = ctypes.c_int
-    lib.roi_pool_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.roi_pool_bwd_error_string.restype = ctypes.c_char_p
-    return fn, lib.roi_pool_bwd_error_string
-
-
-def roi_pool_backward_cuda(feat, rois, g, pooled_h=7, pooled_w=7,
-                           spatial_scale=0.125):
-    """Launch the CUDA RoIPoolF backward kernel on the current stream.
-
-    feat: (H, W, C) contiguous float32 or bfloat16 CUDA tensor; rois:
-    (R, 5) contiguous float32; g: (G, R, pooled_h, pooled_w, C) contiguous
-    float32 or bfloat16, all on one device. Returns dfeat (G, H, W, C)
-    float32. The sums are float atomics: their last bits depend on the
-    order the card adds in. ``roi_pool_backward_cuda.launches`` counts the
-    kernel launches."""
-    if not feat.is_cuda:
-        raise ValueError('roi_pool_backward_cuda needs a CUDA tensor')
-    if feat.dtype not in _SUFFIX or g.dtype not in _SUFFIX:
-        raise ValueError('roi_pool_backward_cuda: feature dtype {} and '
-                         'cotangent dtype {} must be float32 or bfloat16'
-                         .format(feat.dtype, g.dtype))
-    if feat.dim() != 3 or not feat.is_contiguous():
-        raise ValueError('roi_pool_backward_cuda: feat must be a contiguous '
-                         '(H, W, C) map, got shape {} strides {}'.format(
-                             tuple(feat.shape), feat.stride()))
-    if (rois.device != feat.device or rois.dtype != torch.float32
-            or rois.dim() != 2 or rois.shape[1] != 5
-            or not rois.is_contiguous()):
-        raise ValueError('roi_pool_backward_cuda: rois must be a contiguous '
-                         '(R, 5) float32 tensor on {}'.format(feat.device))
-    h, w, c = feat.shape
-    r = rois.shape[0]
-    if (g.device != feat.device or g.dim() != 5
-            or tuple(g.shape[1:]) != (r, pooled_h, pooled_w, c)
-            or not g.is_contiguous()):
-        raise ValueError('roi_pool_backward_cuda: g must be a contiguous '
-                         '(G, {}, {}, {}, {}) tensor on {}, got {}'.format(
-                             r, pooled_h, pooled_w, c, feat.device,
-                             tuple(g.shape)))
+def roi_pool_scatter_reference(argmax, g, height, width):
+    """Plain-PyTorch RoIPoolF gradient from the first-max index (the
+    function of the backward kernel): dfeat[s, argmax[e], c] += g[s, e] for
+    every element e = (r, ph, pw, c) with argmax[e] >= 0, by ``index_add_``
+    into float32. argmax (R, PH, PW, C) int32; g (G, R, PH, PW, C) -> dfeat
+    (G, height, width, C)."""
+    c = argmax.shape[-1]
     n_seeds = g.shape[0]
-    dfeat = torch.zeros((n_seeds, h, w, c), dtype=torch.float32,
-                        device=feat.device)
-    if r == 0 or c == 0 or n_seeds == 0:
+    dfeat = torch.zeros((n_seeds, height * width * c), dtype=torch.float32,
+                        device=argmax.device)
+    flat = argmax.reshape(-1).long()
+    keep = flat >= 0
+    chan = torch.arange(argmax.numel(), device=argmax.device) % c
+    index = (flat * c + chan)[keep]
+    dfeat.index_add_(1, index, g.float().reshape(n_seeds, -1)[:, keep])
+    return dfeat.view(n_seeds, height, width, c)
+
+
+def roi_pool_backward_reference(feat, rois, g, pooled_h=7, pooled_w=7,
+                                spatial_scale=0.125):
+    """Plain-PyTorch RoIPoolF gradient by its definition: each bin's
+    cotangent to its first max cell (``roi_pool_argmax_reference``), summed
+    in float32 (``roi_pool_scatter_reference``). An empty bin and a bin
+    whose max is not finite pass nothing back. g (G, R, PH, PW, C) ->
+    dfeat (G, H, W, C)."""
+    h, w, _ = feat.shape
+    argmax = roi_pool_argmax_reference(feat, rois, pooled_h, pooled_w,
+                                       spatial_scale)
+    return roi_pool_scatter_reference(argmax, g, h, w)
+
+
+def roi_pool_backward_cuda(argmax, g, height, width):
+    """Launch the CUDA RoIPoolF backward kernel (the scatter) on the
+    current stream.
+
+    argmax: (R, PH, PW, C) contiguous int32 CUDA tensor, the forward's
+    first-max index (``roi_pool_cuda(..., argmax=True)``); g:
+    (G, R, PH, PW, C) contiguous float32 or bfloat16 on the same device.
+    Returns dfeat (G, height, width, C) float32. The kernel reads the index
+    and g with 16-byte loads where their size and base addresses allow it,
+    one element a thread otherwise. The sums are float atomics: their last
+    bits depend on the order the card adds in.
+    ``roi_pool_backward_cuda.launches`` counts the kernel launches."""
+    if not argmax.is_cuda:
+        raise ValueError('roi_pool_backward_cuda needs a CUDA tensor')
+    if argmax.dtype != torch.int32 or g.dtype not in _SUFFIX:
+        raise ValueError('roi_pool_backward_cuda: the index must be int32 '
+                         'and the cotangents float32 or bfloat16, got {} and '
+                         '{}'.format(argmax.dtype, g.dtype))
+    if argmax.dim() != 4 or not argmax.is_contiguous():
+        raise ValueError('roi_pool_backward_cuda: the index must be a '
+                         'contiguous (R, PH, PW, C) tensor, got shape {} '
+                         'strides {}'.format(tuple(argmax.shape),
+                                             argmax.stride()))
+    if (g.device != argmax.device or g.dim() != 5
+            or g.shape[1:] != argmax.shape or not g.is_contiguous()):
+        raise ValueError('roi_pool_backward_cuda: g must be a contiguous '
+                         '(G, {}) tensor on {}, got {}'.format(
+                             ', '.join(map(str, argmax.shape)), argmax.device,
+                             tuple(g.shape)))
+    c = argmax.shape[-1]
+    n_seeds = g.shape[0]
+    dfeat = torch.zeros((n_seeds, height, width, c), dtype=torch.float32,
+                        device=argmax.device)
+    if argmax.numel() == 0 or n_seeds == 0:
         return dfeat
-    fn, err_str = _bwd_kernel_fn(feat.dtype, g.dtype)
-    stream = torch.cuda.current_stream(feat.device).cuda_stream
-    rc = fn(feat.data_ptr(), rois.data_ptr(), g.data_ptr(), dfeat.data_ptr(),
-            h, w, c, r, n_seeds, pooled_h, pooled_w, spatial_scale, stream)
+    fn, err_str = _kernel_fn(
+        'roi_pool_bwd', 'roi_pool_bwd_' + _SUFFIX[g.dtype],
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 +
+        [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(argmax.device).cuda_stream
+    rc = fn(argmax.data_ptr(), g.data_ptr(), dfeat.data_ptr(), height, width,
+            c, argmax.numel(), n_seeds, stream)
     if rc != 0:
         raise RuntimeError('roi_pool backward CUDA launch failed: {}'.format(
             err_str(rc).decode()))

@@ -11,9 +11,10 @@ file's atol, plus a relative term: the detection logit is the difference of
 two bfloat16 towers' outputs, the cancellation magnifies the two frameworks'
 different rounding places, and the softmax over RoIs turns a logit's
 absolute error into a score's relative one); forward_train's total and aux
-at rtol 1e-4, atol 1e-5, head gradients at rtol 1e-3, atol 1e-5 (fc6 and
-fc7 sum three uses of the one tower in another order than XLA does; the
-largest entries are ~0.4), three chained steps at rtol 1e-3, atol 1e-6 on
+at rtol 1e-4, atol 1e-5, head gradients at rtol 1e-3, atol 1e-5 of each
+leaf's largest entry or of 1 (float32 sums over the RoIs in an order that
+depends on the machine's GEMM kernels; fc6 and fc7 sum three uses of the
+one tower in another order than XLA does), three chained steps at rtol 1e-3, atol 1e-6 on
 the parameters (the bounds of tests/test_torch_train.py).
 """
 
@@ -387,8 +388,12 @@ def test_context_forward_train_total_aux_and_gradients_match_jax():
     grads = torch.autograd.grad(total, [blobs[n] for n in names])
     got = state_to_jax_names(dict(zip(names, grads)))
     for n in names:
-        np.testing.assert_allclose(got[n], np.asarray(want_grads[n]),
-                                   rtol=1e-3, atol=1e-5, err_msg=n)
+        ref = np.asarray(want_grads[n])
+        # float32 sums over the RoIs and the three streams, in an order
+        # that depends on the machine's GEMM kernels (and XLA's)
+        np.testing.assert_allclose(got[n], ref, rtol=1e-3,
+                                   atol=1e-5 * max(np.abs(ref).max(), 1.0),
+                                   err_msg=n)
     # fc6 sums three uses; the shared fc8d_frame bias cancels
     assert float(np.abs(got['fc6_w']).max()) > 0
     assert float(np.abs(got['fc8d_frame_w']).max()) > 0
@@ -478,6 +483,8 @@ def test_three_context_train_steps_track_jax():
                                    atol=1e-5, err_msg=str(step))
     got = state_to_jax_names(named_blobs(model))
     for n in params:
+        # the gradients' differences (see the test above) reach the
+        # parameters times the learning rate, 1e-3
         np.testing.assert_allclose(got[n], np.asarray(jp[n]), rtol=1e-3,
                                    atol=1e-6, err_msg=n)
         if n.startswith('conv'):

@@ -6,10 +6,12 @@ tests/conftest.py:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the forwards (RoIPoolF, RoILoopPool) bitwise (max pooling
-selects an element, it rounds nothing); RoIAlign bitwise too (the kernel
+selects an element, it rounds nothing), and so is RoIPoolF's first-max
+index; RoIAlign bitwise too (the kernel
 spells every float operation of the plain version in its order, with
 round-to-nearest intrinsics, so nothing is contracted into an FMA; NaN in
-the same places on a map with non-finite cells); the backward bitwise with
+the same places on a map with non-finite cells); the backward (the scatter
+from the saved index) bitwise with
 integer cotangents (small integers sum exactly in float32 in any order, so
 this checks the routing) and within
 1e-5 |x| + 1e-6 sum|g| per cell with normal cotangents (both sides add
@@ -68,13 +70,61 @@ def test_roi_pool_kernel_matches_plain_version(card, dtype, h, w, c, r):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('c', [3, 20, 64, 512, 520])
+def test_roi_pool_kernel_and_index_at_any_channel_count(card, dtype, c):
+    """C in {3, 20, 64, 512, 520}: 16-byte loads where C allows them,
+    narrower ones otherwise; the pooled map and the first-max index both
+    bitwise the plain versions', on a ReLU map (tied zeros)."""
+    rng = np.random.RandomState(c)
+    feat = torch.relu(torch.from_numpy(
+        rng.randn(30, 41, c).astype(np.float32))).to(card, dtype)
+    rois = torch.from_numpy(_rois(rng, 300, 8 * 41, 8 * 30)).to(card)
+    per_load = 16 // feat.element_size()
+    while c % per_load:
+        per_load //= 2
+    assert rp.channels_per_load(feat) == per_load
+    got, index = rp.roi_pool_cuda(feat, rois, argmax=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rp.roi_pool_reference(feat, rois))
+    assert index.dtype == torch.int32
+    assert torch.equal(index, rp.roi_pool_argmax_reference(feat, rois))
+    assert torch.equal(rp.roi_pool_cuda(feat, rois), got)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_roi_pool_kernel_on_a_map_whose_base_is_not_16_byte_aligned(card,
+                                                                     dtype):
+    """An offset view of a larger buffer: the wrapper takes narrower loads
+    inside the kernel (channels_per_load says how many) and the result is
+    the plain version's."""
+    rng = np.random.RandomState(1)
+    size = 30 * 41 * 64
+    buf = torch.from_numpy(rng.randn(size + 1).astype(np.float32)).to(
+        card, dtype)
+    feat = buf[1:].view(30, 41, 64)
+    assert feat.data_ptr() % 16 != 0
+    assert rp.channels_per_load(feat) == 1
+    rois = torch.from_numpy(_rois(rng, 200, 8 * 41, 8 * 30)).to(card)
+    got, index = rp.roi_pool_cuda(feat, rois, argmax=True)
+    assert torch.equal(got, rp.roi_pool_reference(feat, rois))
+    assert torch.equal(index, rp.roi_pool_argmax_reference(feat, rois))
+
+
 def test_roi_pool_kernel_maps_nan_bins_to_zero(card):
     feat = torch.ones(8, 8, 4, device=card)
     feat[2, 3, 1] = float('nan')
+    feat[5, 5, 2] = float('inf')
     rois = torch.tensor([[0, 0, 0, 63, 63]], dtype=torch.float32,
                         device=card)
-    got = rp.roi_pool_cuda(feat, rois)
+    got, index = rp.roi_pool_cuda(feat, rois, argmax=True)
     assert torch.equal(got, rp.roi_pool_reference(feat, rois))
+    assert torch.equal(index, rp.roi_pool_argmax_reference(feat, rois))
+    # the bins that hold the NaN or the inf, and only those, get no index
+    assert (index[..., 0] >= 0).all() and (index[..., 3] >= 0).all()
+    assert (index[..., 1] == -1).any() and (index[..., 2] == -1).any()
 
 
 def test_roi_pool_kernel_rejects_what_it_does_not_take(card):
@@ -94,6 +144,7 @@ def test_roi_pool_kernel_rejects_what_it_does_not_take(card):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
 @pytest.mark.parametrize('h,w,c,r,g', [(87, 119, 512, 2048, 1),
+                                       (87, 119, 512, 2048, 3),
                                        (30, 40, 128, 256, 3),
                                        (13, 9, 200, 64, 2), (5, 6, 1, 7, 1)])
 def test_roi_pool_backward_kernel_matches_plain_version(card, dtype, h, w, c,
@@ -103,23 +154,40 @@ def test_roi_pool_backward_kernel_matches_plain_version(card, dtype, h, w, c,
     feat = torch.relu(torch.from_numpy(
         rng.randn(h, w, c).astype(np.float32))).to(card, dtype)
     rois = torch.from_numpy(_rois(rng, r, 8 * w, 8 * h)).to(card)
+    _, index = rp.roi_pool_cuda(feat, rois, argmax=True)
     ints = torch.from_numpy(rng.randint(-3, 4, (g, r, 7, 7, c)).astype(
         np.float32)).to(card, dtype)
     before = rp.roi_pool_backward_cuda.launches
-    got = rp.roi_pool_backward(feat, rois, ints)
+    got = rp.roi_pool_backward(index, ints, h, w)
     assert rp.roi_pool_backward_cuda.launches == before + 1
-    want = rp.roi_pool_backward_reference(feat, rois, ints)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (g, h, w, c)
-    assert torch.equal(got, want)
+    assert torch.equal(got, rp.roi_pool_scatter_reference(index, ints, h, w))
+    assert torch.equal(got, rp.roi_pool_backward_reference(feat, rois, ints))
     normal = torch.from_numpy(rng.randn(g, r, 7, 7, c).astype(
         np.float32)).to(card, dtype)
-    got = rp.roi_pool_backward_cuda(feat, rois, normal)
+    got = rp.roi_pool_backward_cuda(index, normal, h, w)
     want = rp.roi_pool_backward_reference(feat, rois, normal)
     mass = rp.roi_pool_backward_reference(feat, rois, normal.abs())
     assert not ((got - want).abs() > 1e-5 * want.abs() + 1e-6 * mass).any()
     assert not rp.roi_pool_backward_cuda(
-        feat, rois, torch.zeros_like(normal)).any()
+        index, torch.zeros_like(normal), h, w).any()
+
+
+def test_roi_pool_backward_kernel_on_unaligned_cotangents(card):
+    """Cotangents whose base is not 16-byte aligned take the kernel's
+    one-element path: the same routing."""
+    rng = np.random.RandomState(2)
+    feat = torch.relu(torch.from_numpy(
+        rng.randn(30, 40, 64).astype(np.float32))).to(card)
+    rois = torch.from_numpy(_rois(rng, 100, 320, 240)).to(card)
+    _, index = rp.roi_pool_cuda(feat, rois, argmax=True)
+    buf = torch.from_numpy(rng.randint(-3, 4, 100 * 49 * 64 + 1).astype(
+        np.float32)).to(card)
+    g = buf[1:].view(1, 100, 7, 7, 64)
+    assert g.data_ptr() % 16 != 0
+    got = rp.roi_pool_backward_cuda(index, g, 30, 40)
+    assert torch.equal(got, rp.roi_pool_scatter_reference(index, g, 30, 40))
 
 
 def test_roi_pool_autograd_function_launches_both_kernels(card):
@@ -131,11 +199,18 @@ def test_roi_pool_autograd_function_launches_both_kernels(card):
         np.float32)).to(card)
     leaf = feat.clone().requires_grad_(True)
     fwd, bwd = rp.roi_pool_cuda.launches, rp.roi_pool_backward_cuda.launches
-    rp.roi_pool(leaf, rois).backward(g)
+    with_index = rp.roi_pool_cuda.argmax_launches
+    out = rp.roi_pool(leaf, rois)
+    out.backward(g)
     assert rp.roi_pool_cuda.launches == fwd + 1
+    assert rp.roi_pool_cuda.argmax_launches == with_index + 1
     assert rp.roi_pool_backward_cuda.launches == bwd + 1
+    assert torch.equal(out.detach(), rp.roi_pool_reference(feat, rois))
     want = rp.roi_pool_backward_reference(feat, rois, g[None])[0]
     assert torch.equal(leaf.grad, want)
+    # a map that needs no gradient: the forward writes no index
+    rp.roi_pool(feat, rois)
+    assert rp.roi_pool_cuda.argmax_launches == with_index + 1
 
 
 def test_roi_pool_backward_kernel_skips_nan_and_inf_bins(card):
@@ -145,24 +220,26 @@ def test_roi_pool_backward_kernel_skips_nan_and_inf_bins(card):
     rois = torch.tensor([[0, 0, 0, 63, 63]], dtype=torch.float32,
                         device=card)
     g = torch.ones(1, 1, 7, 7, 4, device=card)
-    got = rp.roi_pool_backward_cuda(feat, rois, g)
+    _, index = rp.roi_pool_cuda(feat, rois, argmax=True)
+    got = rp.roi_pool_backward_cuda(index, g, 8, 8)
     assert torch.equal(got, rp.roi_pool_backward_reference(feat, rois, g))
     assert got[..., 0].sum() == 49
 
 
 def test_roi_pool_backward_kernel_rejects_what_it_does_not_take(card):
-    feat = torch.zeros(4, 4, 8, device=card)
-    rois = torch.zeros(3, 5, device=card)
+    index = torch.zeros(3, 7, 7, 8, dtype=torch.int32, device=card)
     g = torch.zeros(1, 3, 7, 7, 8, device=card)
     with pytest.raises(ValueError):
-        rp.roi_pool_backward_cuda(feat.half(), rois, g)
+        rp.roi_pool_backward_cuda(index, g.half(), 4, 4)
     with pytest.raises(ValueError):
-        rp.roi_pool_backward_cuda(feat, rois, g[0])
+        rp.roi_pool_backward_cuda(index.long(), g, 4, 4)
     with pytest.raises(ValueError):
-        rp.roi_pool_backward_cuda(feat, rois, g.transpose(2, 3))
+        rp.roi_pool_backward_cuda(index, g[0], 4, 4)
     with pytest.raises(ValueError):
-        rp.roi_pool_backward_cuda(feat, rois, g.cpu())
-    assert rp.roi_pool_backward_cuda(feat, rois[:0], g[:, :0]).shape == (
+        rp.roi_pool_backward_cuda(index, g.transpose(2, 3), 4, 4)
+    with pytest.raises(ValueError):
+        rp.roi_pool_backward_cuda(index, g.cpu(), 4, 4)
+    assert rp.roi_pool_backward_cuda(index[:0], g[:, :0], 4, 4).shape == (
         1, 4, 4, 8)
 
 

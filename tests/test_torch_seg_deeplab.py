@@ -13,8 +13,10 @@ in float32 and atol 2e-2 in bfloat16 (the frameworks round twelve
 bfloat16 convolutions at other places); ``deeplab_losses`` on the same CPG
 maps at rtol 1e-4; the model's ``mask_seed_loss`` at rtol 5e-3: its CPG
 maps are gradients summed in another order, and a saliency value that
-crosses the 0.7 or 0.1 threshold flips a pixel's target; gradients at
-5e-3 of each leaf's largest entry for the same reason.
+crosses the 0.7 or 0.1 threshold flips a pixel's target; gradients of
+the mask head at 5e-3 of each leaf's largest entry for the same reason,
+of the box head at 1e-5 of it (float32 sums over the RoIs in an order that
+depends on the machine's GEMM kernels).
 """
 
 import jax
@@ -450,6 +452,9 @@ def test_forward_train_total_aux_and_gradients_match_jax():
     for n in names:
         ref = np.asarray(want_grads[n])
         mask_leaf = n.startswith(('fc6_', 'fc7_', 'mask_fc8_'))
+        # box head leaves: float32 sums over the RoIs in an order that
+        # depends on the machine's GEMM kernels (and XLA's); mask leaves:
+        # the CPG targets above
         np.testing.assert_allclose(
             got[n], ref, rtol=1e-3,
             atol=(5e-3 if mask_leaf else 1e-5) * max(np.abs(ref).max(), 1.0),

@@ -5,10 +5,13 @@ dropout unless a test is about dropout.
 
 Tolerances: forward_train's total and aux at rtol 1e-4, atol 1e-5 (the
 bound of the forward tests); gradients of the trainable leaves at
-rtol 1e-3, atol 1e-6; one solver update on identical gradients at
+rtol 1e-3, atol 1e-5 of each leaf's largest entry (float32 sums over the
+RoIs in an order that depends on the machine's GEMM kernels); one solver
+update on identical gradients at
 rtol 1e-6 (the same three float32 operations, possibly contracted
 differently); three chained steps at rtol 1e-3, atol 1e-6 on the
-parameters and rtol 1e-4 on the losses; numpy blobs bitwise.
+parameters (the gradients' differences reach them times the learning rate,
+1e-3) and rtol 1e-4 on the losses; numpy blobs bitwise.
 """
 
 import jax
@@ -108,8 +111,13 @@ def test_forward_train_total_aux_and_gradients_match_jax(family):
     got = state_to_jax_names(dict(zip(names, grads)))
     assert float(np.abs(got['fc8c_w']).max()) > 0
     for n in names:
-        np.testing.assert_allclose(got[n], np.asarray(want_grads[n]),
-                                   rtol=1e-3, atol=1e-6, err_msg=n)
+        ref = np.asarray(want_grads[n])
+        # a weight gradient is a float32 sum of the products of the RoIs,
+        # taken in an order that depends on the machine's GEMM kernels (and
+        # XLA's): the floor is 1e-5 of the leaf's largest entry
+        np.testing.assert_allclose(got[n], ref, rtol=1e-3,
+                                   atol=1e-5 * max(np.abs(ref).max(), 1.0),
+                                   err_msg=n)
     for n in blobs:                       # the frozen body got no gradient
         if n.startswith('conv'):
             assert not np.asarray(want_grads[n]).any(), n
@@ -257,6 +265,8 @@ def test_three_train_steps_track_jax(family):
     got = state_to_jax_names(named_blobs(model))
     moved = 0
     for n in params:
+        # the gradients' differences (see the test above) reach the
+        # parameters times the learning rate, 1e-3
         np.testing.assert_allclose(got[n], np.asarray(jp[n]), rtol=1e-3,
                                    atol=1e-6, err_msg=n)
         if n.startswith('conv'):
