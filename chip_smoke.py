@@ -19,9 +19,10 @@ Phases, each of which fails the run with a non-zero exit:
      add in another order than the plain version), all zeros for zero
      cotangents, timed beside one scatter_add_; the
      RoILoopPool forward bitwise in both types on the frame and the context
-     rois of the same proposals plus edge rows, on a ReLU map, a signed map,
-     an all-negative map (all zeros out) and a map with NaN and infinite
-     cells;
+     rois of the same proposals plus edge rows (an inner box that covers the
+     outer one, one-row and one-column interiors, an interior on bin edges
+     among them), on a ReLU map, a signed map, an all-negative map (all
+     zeros out) and a map with NaN and infinite cells;
   4. the flagship inference path at full width (dilated VGG16-C5, two
      4096-wide towers, 21 classes, bfloat16, random weights from a seed)
      through test_net -> im_detect_all over three synthetic images with
@@ -74,7 +75,8 @@ The RoIAlign kernel is held against its plain version in phase 3 too: at
 14x14 and 7x7 bins with 2x2 samples, float32 and bfloat16, bitwise, on the
 2048 proposals plus edge rows (samples at exactly -1, H and W, boxes past
 and off the map, a sub-cell box, padded all-zero rows) and on a map with
-NaN and infinite cells (NaN in the same places).
+NaN and infinite cells (NaN in the same places); it is also timed at 14x14
+on 100 of the RoIs, mask inference's shape.
 ``--profile`` adds stage times and torch.profiler's kernel tables for one
 image, one flagship train step and one CSC train step, one context image
 and one context train step, one SEG_FCN image and one SEG_FCN train step.
@@ -404,6 +406,12 @@ K2_EDGE_ROIS = [
     [0, 2000, 2000, 2100, 2100, 2020, 2020, 2080, 2080],    # off the map
     [0, 400, 300, 200, 100, 380, 280, 220, 120],    # inverted: extents 1
     [0, 0, 0, 0, 0, 0, 0, 0, 0],                    # a padded row
+    [0, 200, 200, 400, 300, 100, 100, 500, 400],    # inner covers outer: 0
+    [0, 100, 100, 500, 400, 150, 200, 450, 216],    # one open row (26)
+    [0, 100, 100, 500, 400, 200, 150, 216, 350],    # one open column (26)
+    # cells 8-63 on both axes, bins of 8 cells; the open interior is
+    # columns 16-55 and rows 24-47, exactly bins 1-5 and 2-4
+    [0, 64, 64, 504, 504, 120, 184, 448, 384],
 ]
 
 
@@ -444,6 +452,9 @@ def phase_k2():
                 if kind == 'negative' and got.any():
                     raise AssertionError('K2: an all-negative map must pool '
                                          'to 0 everywhere')
+                if got[len(got) - len(K2_EDGE_ROIS) + 9].any():
+                    raise AssertionError('K2: an inner box that covers the '
+                                         'outer box leaves no ring')
             feat = maps['relu'].to(dtype)
             got = ctx.roi_loop_pool_cuda(feat, rois9)
             want = ctx.roi_loop_pool_reference(feat, rois9)
@@ -491,7 +502,9 @@ K4_EDGE_ROIS = [
     [0, 400, 300, 200, 100],        # inverted: extents floored at 1
     [0, 2000, 2000, 2100, 2100],    # off the map: every sample counts 0
     [0, -500, -500, -100, -100],    # off the map on the other side
-    [0, 0, 0, 916, 687],            # the image
+    [0, 0, 0, 916, 687],            # the image: 56 distinct rows, columns
+    [0, 320, 240, 324, 244],        # in cell (30, 40): 14x14's samples all
+    #                                 on cells 30-31 and 40-41
     [0, 0, 0, 0, 0], [0, 0, 0, 0, 0],   # padded rows of a training batch
 ]
 
@@ -568,6 +581,16 @@ def phase_k4():
                     str(dtype), rois.shape[0], res, res, ms, plain_ms,
                     bound_ms, bound_by))
             if dtype == torch.bfloat16 and res == 14:  # the mask head's call
+                # mask inference: the <= 100 final boxes of an image
+                boxes = rois[:2048:20][:100].contiguous()
+                ms_100 = time_ms(lambda: rp.roi_align_cuda(
+                    feat, boxes, res, res, 0.125, 2), 50)
+                bound_100, _ = align_bound_ms(
+                    feat, boxes, rp.roi_align_cuda(feat, boxes, res, res,
+                                                   0.125, 2), 2)
+                log('K4 %s (87,119,512) R=100 %dx%d sr=2: kernel %.4f ms, '
+                    'bound %.4f ms' % (str(dtype), res, res, ms_100,
+                                       bound_100))
                 row = {'name': 'roi_align_fwd', 'route': 'cuda',
                        'source': 'nafwebsod_torch/ops/csrc/roi_align.cu',
                        'replaces':
@@ -578,7 +601,9 @@ def phase_k4():
                        # where RoIAlign zeroes outside [-1, H] and clamps
                        # inside, wants the map once per RoI, and leaves the
                        # mean over a bin's samples to a second call
-                       'library_ms': None}
+                       'library_ms': None,
+                       'ms_100_boxes': ms_100,
+                       'bound_ms_100_boxes': bound_100}
     return row
 
 

@@ -107,8 +107,9 @@ def roi_loop_pool_cuda(feat, rois9, pooled_h=7, pooled_w=7,
                        spatial_scale=0.125):
     """Launch the CUDA RoILoopPool kernel on the current stream.
 
-    feat: (H, W, C) contiguous float32 or bfloat16 CUDA tensor; rois9:
-    (R, 9) contiguous float32 on the same device.
+    feat: (H, W, C) contiguous float32 or bfloat16 CUDA tensor, any C and
+    any base address (``rp.channels_per_load`` says which loads the kernel
+    uses); rois9: (R, 9) contiguous float32 on the same device.
     ``roi_loop_pool_cuda.launches`` counts the kernel launches."""
     out, launched = rp.launch_pool_forward(
         'roi_loop_pool', feat, rois9, 9, pooled_h, pooled_w, spatial_scale)

@@ -173,9 +173,10 @@ def launch_pool_forward(name, feat, rois, roi_cols, pooled_h, pooled_w,
     """Check the arguments and launch the forward kernel of
     ``csrc/<name>.cu`` (``<name>_fwd_f32`` / ``<name>_fwd_bf16``) on the
     current stream. feat: (H, W, C) contiguous float32 or bfloat16 CUDA
-    tensor; rois: (R, roi_cols) contiguous float32 on the same device;
-    ``extra_outs`` (tensors, or None for a null pointer) go to the kernel
-    after ``out``, ``extra_ints`` after ``pooled_w``. Returns (out
+    tensor, any C and any base address; rois: (R, roi_cols) contiguous
+    float32 on the same device; ``extra_outs`` (tensors, or None for a null
+    pointer) go to the kernel after ``out``, ``extra_ints`` after
+    ``pooled_w`` and before ``channels_per_load(feat)``. Returns (out
     (R, pooled_h, pooled_w, C) in ``out_dtype``, feat's type when None, and
     whether a kernel was launched: not for an empty output)."""
     check_pool_args(name, feat, rois, roi_cols)
@@ -188,13 +189,13 @@ def launch_pool_forward(name, feat, rois, roi_cols, pooled_h, pooled_w,
     fn, err_str = _kernel_fn(
         name, '{}_fwd_{}'.format(name, _SUFFIX[feat.dtype]),
         [ctypes.c_void_p] * (3 + len(extra_outs)) +
-        [ctypes.c_int] * (6 + len(extra_ints)) +
+        [ctypes.c_int] * (7 + len(extra_ints)) +
         [ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     rc = fn(feat.data_ptr(), rois.data_ptr(), out.data_ptr(),
             *(t if t is None else t.data_ptr() for t in extra_outs),
-            h, w, c, r, pooled_h, pooled_w, *extra_ints, spatial_scale,
-            stream)
+            h, w, c, r, pooled_h, pooled_w, *extra_ints,
+            channels_per_load(feat), spatial_scale, stream)
     if rc != 0:
         raise RuntimeError('{} CUDA launch failed: {}'.format(
             name, err_str(rc).decode()))
@@ -202,11 +203,11 @@ def launch_pool_forward(name, feat, rois, roi_cols, pooled_h, pooled_w,
 
 
 def channels_per_load(feat):
-    """How many channels a thread of the RoIPoolF forward kernel reads at
-    once: the most of 16 bytes (8 bfloat16 or 4 float32 channels) that
-    divides a cell's C channels and the map's base address, down to one
-    channel. A map whose C or base address does not suit 16-byte loads
-    still runs in the kernel, with narrower loads."""
+    """How many channels a thread of the forward kernels (RoIPoolF,
+    RoILoopPool, RoIAlign) reads at once: the most of 16 bytes (8 bfloat16
+    or 4 float32 channels) that divides a cell's C channels and the map's
+    base address, down to one channel. A map whose C or base address does
+    not suit 16-byte loads still runs in the kernel, with narrower loads."""
     size = feat.element_size()
     n = 16 // size
     while n > 1 and (feat.shape[-1] % n or feat.data_ptr() % (n * size)):
@@ -231,7 +232,7 @@ def roi_pool_cuda(feat, rois, pooled_h=7, pooled_w=7, spatial_scale=0.125,
              if argmax else None)
     out, launched = launch_pool_forward(
         'roi_pool', feat, rois, 5, pooled_h, pooled_w, spatial_scale,
-        extra_ints=(channels_per_load(feat),), extra_outs=(index,))
+        extra_outs=(index,))
     roi_pool_cuda.launches += launched
     roi_pool_cuda.argmax_launches += launched and argmax
     return (out, index) if argmax else out
@@ -508,9 +509,10 @@ def roi_align_cuda(feat, rois, pooled_h=7, pooled_w=7, spatial_scale=0.125,
                    sampling_ratio=2):
     """Launch the CUDA RoIAlign kernel on the current stream.
 
-    feat: (H, W, C) contiguous float32 or bfloat16 CUDA tensor; rois: (R, 5)
-    contiguous float32 on the same device. Returns float32.
-    ``roi_align_cuda.launches`` counts the kernel launches."""
+    feat: (H, W, C) contiguous float32 or bfloat16 CUDA tensor, any C and
+    any base address (``channels_per_load`` says which loads the kernel
+    uses); rois: (R, 5) contiguous float32 on the same device. Returns
+    float32. ``roi_align_cuda.launches`` counts the kernel launches."""
     if sampling_ratio <= 0:
         raise ValueError('roi_align_cuda: sampling_ratio {} is not '
                          'positive'.format(sampling_ratio))

@@ -199,7 +199,16 @@ EDGE_ROIS = np.array([
     [0, 400, 400, 500, 500, 420, 420, 480, 480],  # wholly off the map
     [0, 100, 100, 60, 60, 90, 90, 70, 70],      # inverted: extents floor at 1
     [0, 0, 0, 0, 0, 0, 0, 0, 0],                # a padded row
+    [0, 40, 40, 150, 150, 16, 16, 180, 180],    # inner covers outer: all 0
+    [0, 16, 16, 170, 170, 40, 80, 150, 96],     # one open row (11)
+    [0, 16, 16, 170, 170, 80, 40, 96, 150],     # one open column (11)
+    # cells 1-21, bins of 3 cells; the open interior, cells 4-18 on both
+    # axes, is exactly bins 1-5
+    [0, 8, 8, 168, 168, 24, 24, 152, 152],
 ], np.float32)
+# the rows whose outer box lies inside the 24 x 24 map, where
+# roi_loop_pool_xla's capped gather windows hold every bin
+IN_MAP = [0, 1, 2, 3, 4, 5, 8, 9, 10, 11, 12, 13]
 
 
 @pytest.mark.parametrize('feat_kind', ['relu', 'signed', 'negative',
@@ -234,6 +243,31 @@ def test_reference_on_the_edge_rows(feat_kind):
         border = np.ones((24, 24), bool)
         border[1:23, 1:23] = False
         assert got[5].max() == feat[border].max()
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('feat_kind', ['relu', 'signed'])
+def test_edge_rows_equal_xla_and_the_interpreted_kernel(feat_kind, dtype):
+    """The edge rows inside the map, the covering inner box, the one-row
+    and one-column interiors and the interior on bin edges among them,
+    bitwise against ``roi_loop_pool_xla`` and the interpret-mode kernel."""
+    rng = np.random.RandomState(5)
+    feat = rng.randn(24, 24, 4).astype(np.float32)
+    if feat_kind == 'relu':
+        feat = np.maximum(feat, 0)
+    rois = EDGE_ROIS[IN_MAP]
+    jfeat = jnp.asarray(feat).astype(JAX_DTYPES[dtype])
+    want = np.asarray(roi_loop_pool_xla(jfeat, jnp.asarray(rois), 7, 7, 0.125)
+                      .astype(jnp.float32))
+    kernel = np.asarray(roi_loop_pool_pallas(jfeat, jnp.asarray(rois), 7, 7,
+                                             0.125, interpret=True)
+                        .astype(jnp.float32))
+    got = ctx.roi_loop_pool(torch.from_numpy(feat).to(TORCH_DTYPES[dtype]),
+                            torch.from_numpy(rois)).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, kernel)
+    assert not got[IN_MAP.index(10)].any()      # the covering inner box
+    assert got[IN_MAP.index(11)].any() and got[IN_MAP.index(13)].any()
 
 
 def test_reference_keeps_the_exact_bins_past_the_image():

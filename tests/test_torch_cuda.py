@@ -290,6 +290,10 @@ RING_EDGE_ROIS = [
     [0, 4000, 4000, 5000, 5000, 4200, 4200, 4800, 4800],    # off the map
     [0, 100, 100, 60, 60, 90, 90, 70, 70],      # inverted: extents floor at 1
     [0, 0, 0, 0, 0, 0, 0, 0, 0],                # a padded row
+    [0, 40, 40, 150, 150, 16, 16, 180, 180],    # inner covers outer: all 0
+    [0, 16, 16, 170, 170, 40, 80, 150, 96],     # one open row
+    [0, 16, 16, 170, 170, 80, 40, 96, 150],     # one open column
+    [0, 8, 8, 168, 168, 24, 24, 152, 152],      # interior on bin edges
 ]
 
 
@@ -328,6 +332,39 @@ def test_roi_loop_pool_kernel_matches_plain_version(card, dtype, stream, kind,
         assert not got.any()
     if kind == 'relu':
         assert got.any()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('c', [3, 20, 64, 512, 520])
+def test_roi_loop_pool_kernel_at_any_channel_count(card, dtype, c):
+    """C in {3, 20, 64, 512, 520}: 16-byte loads where C allows them,
+    narrower ones otherwise; bitwise the plain version on a signed map."""
+    rng = np.random.RandomState(c)
+    feat = torch.from_numpy(rng.randn(30, 41, c).astype(np.float32)).to(
+        card, dtype)
+    proposals = torch.from_numpy(_rois(rng, 300, 8 * 41, 8 * 30)).to(card)
+    for rois9 in ctx.roi_context(proposals, 8 * 30, 8 * 41, 1.8):
+        rois9 = torch.cat([rois9, torch.tensor(RING_EDGE_ROIS, device=card)])
+        got = ctx.roi_loop_pool_cuda(feat, rois9.contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(got, ctx.roi_loop_pool_reference(feat, rois9))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_roi_loop_pool_kernel_on_a_map_whose_base_is_not_16_byte_aligned(
+        card, dtype):
+    rng = np.random.RandomState(1)
+    size = 30 * 41 * 64
+    buf = torch.from_numpy(rng.randn(size + 1).astype(np.float32)).to(
+        card, dtype)
+    feat = buf[1:].view(30, 41, 64)
+    assert feat.data_ptr() % 16 != 0 and rp.channels_per_load(feat) == 1
+    proposals = torch.from_numpy(_rois(rng, 200, 8 * 41, 8 * 30)).to(card)
+    rois9 = ctx.roi_context(proposals, 8 * 30, 8 * 41, 1.8)[1]
+    assert torch.equal(ctx.roi_loop_pool_cuda(feat, rois9),
+                       ctx.roi_loop_pool_reference(feat, rois9))
 
 
 def test_roi_loop_pool_kernel_rejects_what_it_does_not_take(card):
@@ -372,20 +409,22 @@ def test_context_streams_on_the_card_equal_the_plain_versions(card):
 
 # RoIAlign edge rows on an (87, 119) map at scale 1/8: samples at exactly
 # -1, H and W (14 and 7 bins), boxes past and off the map, a sub-cell box,
-# an inverted box, padded rows.
+# an inverted box, the image, a box inside one cell (every sample on the
+# same four cells), padded rows.
 ALIGN_EDGE_ROIS = [
     [0, 800, 600, 1200, 900], [0, -16, 256, 432, 704],
     [0, 512, -16, 960, 432], [0, -16, 480, 208, 704],
     [0, 736, -16, 960, 208], [0, 100.3, 100.7, 101.1, 102.9],
     [0, 400, 300, 200, 100], [0, 2000, 2000, 2100, 2100],
-    [0, -500, -500, -100, -100], [0, 0, 0, 0, 0], [0, 0, 0, 0, 0]]
+    [0, -500, -500, -100, -100], [0, 0, 0, 916, 687], [0, 320, 240, 324, 244],
+    [0, 0, 0, 0, 0], [0, 0, 0, 0, 0]]
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
 @pytest.mark.parametrize('kind', ['signed', 'non_finite'])
 @pytest.mark.parametrize('res,sr', [(14, 2), (7, 2), (7, 1), (5, 3)])
-@pytest.mark.parametrize('h,w,c,r', [(87, 119, 512, 2048),
+@pytest.mark.parametrize('h,w,c,r', [(87, 119, 512, 2048), (87, 119, 512, 5),
                                      (13, 9, 200, 64), (5, 6, 1, 7)])
 def test_roi_align_kernel_matches_plain_version(card, dtype, kind, res, sr,
                                                 h, w, c, r):
@@ -414,6 +453,41 @@ def test_roi_align_kernel_matches_plain_version(card, dtype, kind, res, sr,
     # the default output type is the map's: one rounding at the end
     assert torch.equal(rp.roi_align(feat, rois[:9], res, res, 0.125, sr)[
         ~nan[:9]], got[:9].to(dtype)[~nan[:9]])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('c', [3, 20, 64, 512, 520])
+def test_roi_align_kernel_at_any_channel_count(card, dtype, c):
+    """C in {3, 20, 64, 512, 520}: 16-byte loads where C allows them,
+    narrower ones and narrower slabs otherwise; at 14x14 and 7x7, bitwise
+    the plain version."""
+    rng = np.random.RandomState(c)
+    feat = torch.from_numpy(rng.randn(30, 41, c).astype(np.float32)).to(
+        card, dtype)
+    rois = torch.cat([
+        torch.from_numpy(_rois(rng, 300, 8 * 41, 8 * 30)),
+        torch.tensor(ALIGN_EDGE_ROIS, dtype=torch.float32)]).to(card)
+    for res in (14, 7):
+        got = rp.roi_align_cuda(feat, rois, res, res, 0.125, 2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, rp.roi_align_reference(feat, rois, res, res,
+                                                       0.125, 2))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_roi_align_kernel_on_a_map_whose_base_is_not_16_byte_aligned(card,
+                                                                      dtype):
+    rng = np.random.RandomState(1)
+    size = 30 * 41 * 64
+    buf = torch.from_numpy(rng.randn(size + 1).astype(np.float32)).to(
+        card, dtype)
+    feat = buf[1:].view(30, 41, 64)
+    assert feat.data_ptr() % 16 != 0 and rp.channels_per_load(feat) == 1
+    rois = torch.from_numpy(_rois(rng, 200, 8 * 41, 8 * 30)).to(card)
+    assert torch.equal(rp.roi_align_cuda(feat, rois, 14, 14, 0.125, 2),
+                       rp.roi_align_reference(feat, rois, 14, 14, 0.125, 2))
 
 
 def test_roi_align_kernel_rejects_what_it_does_not_take(card):

@@ -157,6 +157,8 @@ EDGE_ROIS = np.array([
     [0, 2000, 2000, 2100, 2100],    # off the map: every sample counts 0
     [0, -500, -500, -100, -100],    # off the map on the other side
     [0, 0, 0, 319, 319],            # the image
+    [0, 80, 80, 84, 84],            # in cell (10, 10): 14x14's samples all
+    #                                 on cells 10-11
     [0, 0, 0, 0, 0],                # a padded row
 ], np.float32)
 
@@ -186,6 +188,30 @@ def test_reference_on_the_edge_rows(res):
                                0.125, 2, closed=False)
     assert np.abs(open_ended[:, 0] - golden[row][:, 0]).max() > 1e-3
     assert np.abs(open_ended[-1] - golden[row][-1]).max() > 1e-3
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('res', [7, 14])
+def test_edge_rows_inside_the_map_match_xla_and_the_interpreted_kernel(
+        res, dtype):
+    """The whole image (as many distinct rows and columns as samples allow)
+    and a box inside one cell (every sample on the same four cells) against
+    ``roi_align_xla`` and the interpret-mode kernel, to the coordinate
+    tolerance (the module's docstring)."""
+    rng = np.random.RandomState(6)
+    feat = _feat(rng, 40, 8, dtype)
+    rois = EDGE_ROIS[9:11]
+    got = _port(feat, rois, res, dtype, out_dtype=torch.float32).numpy()
+    jf = jnp.asarray(feat).astype(JAX_DTYPES[dtype])
+    want = np.asarray(roi_align_xla(jf, jnp.asarray(rois), res, res, 0.125, 2))
+    kernel = np.asarray(roi_align_pallas(jf, jnp.asarray(rois), res, res,
+                                         0.125, 2, interpret=True))
+    np.testing.assert_allclose(got, want, **_coord_tol(feat, 40))
+    np.testing.assert_allclose(got, kernel, **_coord_tol(feat, 40))
+    # inside one cell every bin blends the same four cells
+    corners = feat[10:12, 10:12].reshape(4, -1)
+    assert (got[1] >= corners.min(0) - 1e-6).all()
+    assert (got[1] <= corners.max(0) + 1e-6).all()
 
 
 def test_non_finite_cells_under_a_zero_weight_give_nan_as_in_jax():
