@@ -29,9 +29,10 @@ Phases, each of which fails the run with a non-zero exit:
      ~2000 proposals each, counting kernel launches;
   5. the same images with the pool forced to its plain version: the
      detections must be identical to phase 4;
-  6. flagship webly training at full width: 4 steps of train_model over
-     four synthetic images (SOLVER.BASE_LR lowered to TRAIN_BASE_LR, see
-     there), one step a bagging-mixup blend; finite losses,
+  6. flagship webly training at full width: 4 steps of train_loop (the
+     loop of train_model) over four synthetic images, drawn by the loader
+     with one thread (SOLVER.BASE_LR lowered to TRAIN_BASE_LR, see
+     there), the second step a bagging-mixup blend; finite losses,
      every trainable leaf moved and no body leaf, the forward kernel once
      per step and the backward kernel never;
   7. CSC training at full width: 3 steps, each image labelled with the
@@ -51,7 +52,7 @@ Phases, each of which fails the run with a non-zero exit:
      class for the ground truth as detections); then the
      same images with RoILoopPool forced to its plain version: identical
      detections;
-  9. context training at full width: 3 steps of train_model; finite
+  9. context training at full width: 3 steps of train_loop; finite
      losses, fc6, fc7, fc8c and fc8d_frame's weight moved (its bias
      cancels in fc8d and must not move), no body leaf moved, RoIPoolF once
      and RoILoopPool twice per step, the backward kernel never;
@@ -71,6 +72,23 @@ Phases, each of which fails the run with a non-zero exit:
      segm_results_deeplab, and 3 training steps with the CPG seeds (the
      backward kernel once per seed), the seed loss and the dense-CRF
      consistency loss finite, every mask leaf moved.
+ 13. the flagship's training job at full width as a user starts it:
+     tools/train_net_torch.py's main with --cfg FLAGSHIP over a synthetic
+     flickr_voc-style training set (COCO json with one image-level label
+     an image, two images a class, a proposal pkl, 8 VOC-sized images and
+     their flipped copies, the pixels handed over as arrays) and phase 8's
+     test set: TRAIN.WEIGHTS '' (the ImageNet pkl is not in the
+     repository), SOLVER.BASE_LR TRAIN_BASE_LR, 24 iterations, snapshots
+     every 8, 4 loader threads; json_stats lines at iterations 0, 20 and
+     23 with the JAX package's keys plus mem and queue_size, model_iter7,
+     model_iter15 and model_final with momentum, K1 once per step and no
+     other kernel, every trainable leaf moved and no body leaf, the three
+     models tested to finite mAP and CorLoc; then, model_final deleted,
+     the job resumes from model_iter15 at 16 with its momentum bitwise and
+     runs 8 steps, and a third run skips. It prints the step time, the
+     wait on the loader's queue, the upload, the queue depth, one
+     minibatch built on the main thread, and each pkl's size and save
+     time.
 The RoIAlign kernel is held against its plain version in phase 3 too: at
 14x14 and 7x7 bins with 2x2 samples, float32 and bfloat16, bitwise, on the
 2048 proposals plus edge rows (samples at exactly -1, H and W, boxes past
@@ -108,8 +126,8 @@ NUM_PROPOSALS = 2000
 # image-level class of each of the four training images: pairs share it
 # (bagging-mixup draws a partner of the same class)
 TRAIN_CLASSES = [3, 3, 8, 8]
-# numpy seed of the flagship training phase's minibatches: with it the
-# second of the four steps is a bagging-mixup blend (a test holds this)
+# RNG_SEED of the flagship training phase: with it the one-thread loader's
+# second minibatch is a bagging-mixup blend (a test holds this)
 FLAGSHIP_TRAIN_SEED = 3
 # SOLVER.BASE_LR of both training phases. The weights are random, not the
 # ImageNet VGG16 the configured 1e-3 is meant for: the clamped CE gradient
@@ -629,7 +647,7 @@ def synthetic_roidb(seed, pixel_means, sizes=IMAGE_SIZES, min_side=8):
         boxes = np.stack([x1, y1, np.minimum(x1 + bw, w - 1),
                           np.minimum(y1 + bh, h - 1)], 1)
         boxes[0] = [0, 0, w - 1, h - 1]
-        roidb.append({'image': im, 'id': i,
+        roidb.append({'image': im, 'id': i, 'width': w, 'height': h,
                       'boxes': np.round(boxes).astype(np.float32),
                       'obn_scores': rng.rand(NUM_PROPOSALS, 1)
                       .astype(np.float32)})
@@ -763,6 +781,26 @@ def read_counts():
     return counts
 
 
+def train_steps(roidb, max_iters, start_iter=0):
+    """Iterations ``start_iter`` to ``max_iters`` of the cfg's model from
+    its seed on the card, through ``train_loop`` (the loop of
+    ``train_model``: the loader, the learning-rate schedule, the train
+    step) without a job's output directory. One loader thread and a queue
+    of two: a fixed stream, and no minibatches built past the few steps,
+    so that the step times compare with those of the inline minibatch
+    (phase 13 reads the four-thread loader). Returns (model, solver state,
+    records)."""
+    from nafwebsod_torch.core.config import cfg
+    from nafwebsod_torch.engine.test_engine import initialize_model_from_cfg
+    from nafwebsod_torch.engine.train import create_solver, train_loop
+    cfg.DATA_LOADER.NUM_THREADS = 1
+    cfg.DATA_LOADER.MINIBATCH_QUEUE_SIZE = 2
+    model = initialize_model_from_cfg()
+    solver = create_solver(model)
+    records = train_loop(model, solver, roidb, start_iter, max_iters)
+    return model, solver[2], records
+
+
 def check_leaves_moved(model, before, unmoved=(), may_stay=()):
     """Every head leaf changed and no body leaf did; the head leaves in
     ``unmoved`` must not have changed either, those in ``may_stay`` may or
@@ -782,12 +820,15 @@ def check_leaves_moved(model, before, unmoved=(), may_stay=()):
 def log_steps(name, records):
     steps = [r['step_s'] * 1e3 for r in records]
     log('%s: %d steps, losses %s, step ms (host clock, to the loss on the '
-        'host) %s, after the first: median %.1f; minibatch + upload ms %s; '
-        'peak device memory %.0f MiB' % (
+        'host) %s, after the first: median %.1f; wait on the loader\'s '
+        'queue ms %s; upload ms %s; minibatches waiting %s; peak device '
+        'memory %.0f MiB' % (
             name, len(records), ['%.4f' % r['loss'] for r in records],
             ['%.1f' % t for t in steps],
             statistics.median(steps[1:]) if steps[1:] else float('nan'),
             ['%.1f' % (r['data_s'] * 1e3) for r in records],
+            ['%.1f' % (r['upload_s'] * 1e3) for r in records],
+            [r['queue_size'] for r in records],
             torch.cuda.max_memory_allocated() / 2 ** 20))
 
 
@@ -796,7 +837,6 @@ def phase_train_flagship():
     from nafwebsod_torch.core.config import (FLAGSHIP, cfg,
                                              merge_cfg_from_cfg, reset_cfg)
     from nafwebsod_torch.engine.test_engine import initialize_model_from_cfg
-    from nafwebsod_torch.engine.train import train_model
 
     reset_cfg()
     merge_cfg_from_cfg(FLAGSHIP)
@@ -807,7 +847,7 @@ def phase_train_flagship():
               initialize_model_from_cfg().state_dict().items()}
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    model, opt_state, records = train_model(roidb, max_iters=4)
+    model, opt_state, records = train_steps(roidb, 4)
     torch.cuda.synchronize()
     fwd, bwd, ring, align = read_counts()
     spec = model.spec
@@ -876,11 +916,13 @@ def label_with_top_classes(name, roidb):
     model's state dict, what a training run from the cfg's seed starts
     from."""
     from nafwebsod_torch.engine.test_engine import initialize_model_from_cfg
-    from nafwebsod_torch.engine.train import build_minibatch
+    from nafwebsod_torch.data.loader import (build_minibatch,
+                                             class_to_images)
     fresh = initialize_model_from_cfg()
+    class2idx = class_to_images(roidb)
     for i, entry in enumerate(roidb):
         batch = device_batch(fresh, build_minibatch(
-            roidb, i, np.random.RandomState(i)))
+            roidb, i, np.random.RandomState(i), class2idx))
         top = image_scores(fresh, batch).topk(2)
         entry['gt_classes'][:2] = (top.indices + 1).tolist()
         log('%s image %d: labelled classes %s (untrained scores %s)' % (
@@ -895,7 +937,8 @@ def phase_train_csc():
     from nafwebsod_torch.core.config import (CSC, cfg, merge_cfg_from_cfg,
                                              reset_cfg)
     from nafwebsod_torch.engine.test_engine import initialize_model_from_cfg
-    from nafwebsod_torch.engine.train import build_minibatch, train_model
+    from nafwebsod_torch.data.loader import (build_minibatch,
+                                             class_to_images)
     from nafwebsod_torch.ops import roi_pool as rp
     from nafwebsod_torch.parallel import train_step as ts
 
@@ -911,7 +954,7 @@ def phase_train_csc():
     before = label_with_top_classes('CSC', roidb)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    model, opt_state, records = train_model(roidb, max_iters=3)
+    model, opt_state, records = train_steps(roidb, 3)
     torch.cuda.synchronize()
     fwd, bwd, _, _ = read_counts()
     spec = model.spec
@@ -938,8 +981,7 @@ def phase_train_csc():
     # a step past WSL.CSC_MAX_ITER is plain CE: no seed, no K3
     late = int(cfg.WSL.CSC_MAX_ITER)
     k3 = rp.roi_pool_backward_cuda.launches
-    _, _, late_records = train_model(roidb, max_iters=late + 1,
-                                     start_iter=late)
+    _, _, late_records = train_steps(roidb, late + 1, start_iter=late)
     if rp.roi_pool_backward_cuda.launches != k3:
         raise AssertionError('a step past CSC_MAX_ITER launched K3')
     if abs(late_records[0]['loss_cls_neg']) > 1e-6:
@@ -950,7 +992,7 @@ def phase_train_csc():
 
     # the trained state, one image: the kernels against the plain pool
     batch = device_batch(model, build_minibatch(
-        roidb, 0, np.random.RandomState(5)))
+        roidb, 0, np.random.RandomState(5), class_to_images(roidb)))
     k3 = rp.roi_pool_backward_cuda.launches
     maps_k, keep_k, w_k = csc_maps_and_weights(model, batch, 9)
     if rp.roi_pool_backward_cuda.launches != k3 + 2 or not keep_k.any():
@@ -1211,7 +1253,6 @@ def phase_train_context():
     from nafwebsod_torch.core.config import (CONTEXT, cfg,
                                              merge_cfg_from_cfg, reset_cfg)
     from nafwebsod_torch.engine.test_engine import initialize_model_from_cfg
-    from nafwebsod_torch.engine.train import train_model
 
     reset_cfg()
     merge_cfg_from_cfg(CONTEXT)
@@ -1221,7 +1262,7 @@ def phase_train_context():
               initialize_model_from_cfg().state_dict().items()}
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    model, opt_state, records = train_model(roidb, max_iters=3)
+    model, opt_state, records = train_steps(roidb, 3)
     torch.cuda.synchronize()
     fwd, bwd, ring, align = read_counts()
     spec = model.spec
@@ -1368,7 +1409,6 @@ def phase_train_seg_fcn():
     from nafwebsod_torch.core.config import (SEG_FCN, cfg,
                                              merge_cfg_from_cfg, reset_cfg)
     from nafwebsod_torch.engine.test_engine import initialize_model_from_cfg
-    from nafwebsod_torch.engine.train import train_model
     from nafwebsod_torch.utils.bridge import blob_names
 
     reset_cfg()
@@ -1379,7 +1419,7 @@ def phase_train_seg_fcn():
               initialize_model_from_cfg().state_dict().items()}
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    model, opt_state, records = train_model(roidb, max_iters=3)
+    model, opt_state, records = train_steps(roidb, 3)
     torch.cuda.synchronize()
     fwd, bwd, ring, align = read_counts()
     spec = model.spec
@@ -1469,7 +1509,6 @@ def phase_seg_deeplab():
                                              reset_cfg)
     from nafwebsod_torch.engine.test_engine import (
         initialize_model_from_cfg, test_net)
-    from nafwebsod_torch.engine.train import train_model
 
     reset_cfg()
     merge_cfg_from_cfg(SEG)
@@ -1508,7 +1547,7 @@ def phase_seg_deeplab():
     before = label_with_top_classes('SEG', roidb)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    model, opt_state, records = train_model(roidb, max_iters=3)
+    model, opt_state, records = train_steps(roidb, 3)
     torch.cuda.synchronize()
     fwd, bwd, ring, align = read_counts()
     for r in records:
@@ -1531,6 +1570,329 @@ def phase_seg_deeplab():
             ['%.4g' % r['mask_seed_loss'] for r in records],
             ['%.4g' % r['mask_constraint_loss'] for r in records], fwd, bwd))
     return infer_counts[0] + fwd, bwd
+
+
+# phase 13's training set: VOC-sized images, two of each image-level class
+JOB_IMAGE_SIZES = TRAIN_IMAGE_SIZES + [(500, 375), (375, 500), (427, 640),
+                                       (500, 500)]
+JOB_CLASSES = [3, 3, 8, 8, 12, 12, 15, 15]
+JOB_DATASET = 'synthetic_flickr_voc'
+# the training set's image ids, apart from the test set's (1, 2, 3): one
+# {id: pixels} map serves both
+JOB_FIRST_ID = 101
+JOB_ITERS = 24
+JOB_SNAPSHOT_ITERS = 8
+FLAGSHIP_STATS_KEYS = {'iter', 'lr', 'time', 'loss', 'eta', 'queue_size',
+                       'mem', 'loss_cls', 'loss_cls_noise', 'accuracy_cls',
+                       'accuracy_cls_noise', 'class_weight_mean',
+                       'class_weight_noise_mean'}
+
+
+def write_flickr_dataset(root, pixel_means):
+    """A synthetic flickr_voc-style training set under ``root``, from a
+    seed: COCO-json annotations with one image-level label an image (a
+    whole-image box of its class, as the webly sets have) and a proposal
+    pkl with ~2000 boxes an image. Registers it in the catalog. Returns
+    ({image id: pixels}, proposal file)."""
+    from nafwebsod_torch.data import catalog
+    entries = synthetic_roidb(13, pixel_means, JOB_IMAGE_SIZES, min_side=22)
+    images, annotations, pixels = [], [], {}
+    for i, (entry, cls) in enumerate(zip(entries, JOB_CLASSES)):
+        image_id = JOB_FIRST_ID + i
+        h, w = entry['image'].shape[:2]
+        images.append({'id': image_id, 'file_name': '%06d.jpg' % image_id,
+                       'width': w, 'height': h})
+        annotations.append({'id': i + 1, 'image_id': image_id,
+                            'category_id': cls, 'iscrowd': 0,
+                            'bbox': [0, 0, w, h], 'area': w * h})
+        pixels[image_id] = entry['image']
+    ann_file = os.path.join(root, 'train.json')
+    with open(ann_file, 'w') as f:
+        json.dump({'images': images, 'annotations': annotations,
+                   'categories': [{'id': i + 1, 'name': name}
+                                  for i, name in enumerate(VOC_CLASSES)]}, f)
+    proposal_file = os.path.join(root, 'train_proposals.pkl')
+    with open(proposal_file, 'wb') as f:
+        pickle.dump({'boxes': [e['boxes'] for e in entries],
+                     'scores': [e['obn_scores'] for e in entries],
+                     'ids': [im['id'] for im in images]}, f, 2)
+    catalog.register_dataset(JOB_DATASET, os.path.join(root, 'train_images'),
+                             ann_file)
+    return pixels, proposal_file
+
+
+class Tee:
+    """A stdout that also keeps what is written to it."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self):
+        return ''.join(self.parts)
+
+
+def load_tool(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), 'tools', name + '.py'))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def pkl_blobs(path):
+    from nafwebsod_torch.utils import checkpoint as ckpt
+    return ckpt.load_weights_pkl(path)[0]
+
+
+def phase_train_job():
+    """Phase 13: the flagship's training job at full width as a user
+    starts it, through tools/train_net_torch.py's main, then resumed and
+    skipped by AUTO_RESUME. Returns the RoIPoolF launches of its counted
+    runs."""
+    import contextlib
+    import logging
+    from nafwebsod_torch.core.config import (FLAGSHIP, cfg, get_output_dir,
+                                             merge_cfg_from_cfg, reset_cfg)
+    from nafwebsod_torch.data import loader as loader_lib
+    from nafwebsod_torch.data.roidb import combined_roidb_for_training
+    from nafwebsod_torch.engine import test_engine
+    from nafwebsod_torch.engine import train as train_engine
+    from nafwebsod_torch.utils import checkpoint as ckpt
+
+    tool = load_tool('train_net_torch')
+    # the CLI's logging goes to this stdout, beside the smoke's own lines
+    logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                        format='%(levelname)s %(name)s: %(message)s')
+    saves = []
+    save = ckpt.save_weights_file
+
+    def timed_save(path, *args, **kwargs):
+        t0 = time.time()
+        save(path, *args, **kwargs)
+        saves.append((os.path.basename(path), time.time() - t0,
+                      os.path.getsize(path)))
+
+    ckpt.save_weights_file = timed_save
+    started = {}
+    loop = train_engine.train_loop
+
+    def spy_loop(model, solver, roidb, start_iter=0, *args, **kwargs):
+        started['iter'] = start_iter
+        started['momentum'] = {k: v.to('cpu', copy=True).numpy()
+                               for k, v in solver[2]['momentum'].items()}
+        return loop(model, solver, roidb, start_iter, *args, **kwargs)
+
+    train_engine.train_loop = spy_loop
+    counts = {}
+    test_model = tool.test_model
+
+    def counted_test_model(*args):
+        counts.setdefault('training', read_counts())
+        return test_model(*args)
+
+    tool.test_model = counted_test_model
+    messages = []
+    catcher = logging.Handler()
+    catcher.emit = lambda record: messages.append(record.getMessage())
+    logging.getLogger(train_engine.__name__).addHandler(catcher)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            reset_cfg()
+            merge_cfg_from_cfg(FLAGSHIP)
+            before = {k: v.clone() for k, v in test_engine
+                      .initialize_model_from_cfg().state_dict().items()}
+            train_pixels, train_props = write_flickr_dataset(
+                root, cfg.PIXEL_MEANS)
+            test_pixels, test_props = write_voc_dataset(
+                os.path.join(root, 'voc'), cfg.PIXEL_MEANS)
+            pixels = {**train_pixels, **test_pixels}
+            reset_cfg()
+            argv = ['--cfg', 'FLAGSHIP', 'TRAIN.WEIGHTS', '',
+                    'TRAIN.DATASETS', repr((JOB_DATASET,)),
+                    'TRAIN.PROPOSAL_FILES', repr((train_props,)),
+                    'TEST.DATASETS', repr((SYNTHETIC_DATASET,)),
+                    'TEST.PROPOSAL_FILES', repr((test_props,)),
+                    'SOLVER.BASE_LR', repr(TRAIN_BASE_LR),
+                    'SOLVER.MAX_ITER', str(JOB_ITERS),
+                    'TRAIN.SNAPSHOT_ITERS', str(JOB_SNAPSHOT_ITERS),
+                    'DATA_LOADER.NUM_THREADS', '4',
+                    'OUTPUT_DIR', os.path.join(root, 'out')]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            tee = Tee(sys.stdout)
+            t0 = time.time()
+            with contextlib.redirect_stdout(tee):
+                checkpoints, records, results = tool.main(argv,
+                                                          images=pixels)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            total = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            fwd, bwd, ring, align = counts['training']
+            n_test = len(test_pixels)
+            if [r['iter'] for r in records] != list(range(JOB_ITERS)):
+                raise AssertionError('the job ran iterations %s' % [
+                    r['iter'] for r in records])
+            for r in records:
+                for key in ('loss', 'loss_cls', 'loss_cls_noise',
+                            'class_weight_mean'):
+                    if not np.isfinite(r[key]):
+                        raise AssertionError('iter %d: %s = %r' % (
+                            r['iter'], key, r[key]))
+            if (fwd, bwd, ring, align) != (JOB_ITERS, 0, 0, 0):
+                raise AssertionError(
+                    'the job\'s training launched K1 %d times, K3 %d times, '
+                    'K2 %d times and K4 %d times in %d steps' % (
+                        fwd, bwd, ring, align, JOB_ITERS))
+            if total != (JOB_ITERS + 3 * n_test, 0, 0, 0):
+                raise AssertionError('the job launched %s with three models '
+                                     'tested on %d images' % (total, n_test))
+            stats = [json.loads(line[len('json_stats: '):])
+                     for line in tee.text().splitlines()
+                     if line.startswith('json_stats: ')]
+            if [s['iter'] for s in stats] != [0, 20, JOB_ITERS - 1]:
+                raise AssertionError('json_stats at iterations %s' % [
+                    s['iter'] for s in stats])
+            for line in stats:
+                if set(line) != FLAGSHIP_STATS_KEYS:
+                    raise AssertionError('json_stats keys %s' % sorted(line))
+            out_dir = get_output_dir((JOB_DATASET,), training=True)
+            want = {k: os.path.join(out_dir, 'model_iter%d.pkl' % k)
+                    for k in (7, 15)}
+            want['final'] = os.path.join(out_dir, 'model_final.pkl')
+            if checkpoints != want:
+                raise AssertionError('checkpoints %s' % checkpoints)
+            for key, res in results.items():
+                res = res[SYNTHETIC_DATASET]
+                for metric in ('mAP', 'mean_corloc'):
+                    if not (np.isfinite(res[metric])
+                            and 0.0 <= res[metric] <= 1.0):
+                        raise AssertionError('%s: %s = %r' % (
+                            key, metric, res[metric]))
+            if set(results) != {7, 15, 'final'}:
+                raise AssertionError('tested %s' % sorted(results, key=str))
+            det_file = os.path.join(get_output_dir(
+                (SYNTHETIC_DATASET,), training=False), 'detections.pkl')
+            if not os.path.isfile(det_file):
+                raise AssertionError('no %s' % det_file)
+            steps = [r['step_s'] * 1e3 for r in records]
+            log('train job (tools/train_net_torch.py, %d steps, 4 loader '
+                'threads, %d training entries with the flipped ones): %.1f s '
+                'wall (host clock, the tests of three models included), '
+                'losses %s, peak device memory %.0f MiB' % (
+                    JOB_ITERS, 2 * len(train_pixels), wall,
+                    ['%.4f' % r['loss'] for r in records], peak))
+            log('train job: step ms (host clock, to the loss on the host) '
+                '%s, median after the first %.1f; wait on the loader\'s '
+                'queue ms %s, median after the first %.1f; upload ms %s; '
+                'minibatches waiting before each step %s; mixup steps %s' % (
+                    ['%.1f' % t for t in steps], statistics.median(steps[1:]),
+                    ['%.1f' % (r['data_s'] * 1e3) for r in records],
+                    statistics.median([r['data_s'] * 1e3
+                                       for r in records[1:]]),
+                    ['%.1f' % (r['upload_s'] * 1e3) for r in records],
+                    [r['queue_size'] for r in records],
+                    [r['iter'] for r in records if r['mixup']]))
+            log('train job: json_stats at iterations %s, mem %s MiB, '
+                'queue_size %s, time %s s' % (
+                    [s['iter'] for s in stats], [s.get('mem') for s in stats],
+                    [s['queue_size'] for s in stats],
+                    ['%.4f' % s['time'] for s in stats]))
+            log('train job: tested models %s: mAP %s, mean CorLoc %s' % (
+                sorted(results, key=str),
+                ['%.4f' % results[k][SYNTHETIC_DATASET]['mAP']
+                 for k in sorted(results, key=str)],
+                ['%.4f' % results[k][SYNTHETIC_DATASET]['mean_corloc']
+                 for k in sorted(results, key=str)]))
+
+            # the snapshots: weights and momentum; the final model moved
+            # every trainable leaf and no body leaf
+            for key in (7, 'final'):
+                blobs = pkl_blobs(checkpoints[key])
+                if 'fc6_w_momentum' not in blobs or not blobs[
+                        'fc6_w_momentum'].any():
+                    raise AssertionError('%s has no momentum' % key)
+                if key == 'final':
+                    model = test_engine.initialize_model_from_cfg(
+                        checkpoints['final'])
+                    check_leaves_moved(model, before)
+                    del model
+                del blobs
+            os.remove(checkpoints[7])
+            os.remove(checkpoints['final'])
+
+            # the minibatch on the main thread, at the job's scales
+            roidb = combined_roidb_for_training(cfg.TRAIN.DATASETS,
+                                                cfg.TRAIN.PROPOSAL_FILES)
+            for entry in roidb:
+                entry['image'] = pixels[entry['id']]
+            rng = np.random.RandomState(5)
+            class2idx = loader_lib.class_to_images(roidb)
+            build_ms = []
+            for i in range(8):
+                t0 = time.time()
+                loader_lib.build_minibatch(roidb, i % len(roidb), rng,
+                                           class2idx)
+                build_ms.append((time.time() - t0) * 1e3)
+            log('train job: one minibatch built on the main thread (8 '
+                'draws) ms %s, median %.1f' % (
+                    ['%.1f' % t for t in build_ms],
+                    statistics.median(build_ms)))
+
+            # AUTO_RESUME: from model_iter15.pkl at 16, momentum bitwise
+            snap = pkl_blobs(checkpoints[15])
+            reset_cfg()
+            reset_counts()
+            _, more, tested = tool.main(['--skip-test'] + argv,
+                                        images=pixels)
+            fwd, bwd, ring, align = read_counts()
+            if [r['iter'] for r in more] != list(range(16, JOB_ITERS)):
+                raise AssertionError('the resumed job ran iterations %s' % [
+                    r['iter'] for r in more])
+            if started['iter'] != 16 or tested:
+                raise AssertionError('resumed at %s' % started['iter'])
+            for name, value in started['momentum'].items():
+                if not np.array_equal(value, snap[name + '_momentum']):
+                    raise AssertionError('resumed momentum of %s differs '
+                                         'from model_iter15.pkl' % name)
+            if (fwd, bwd, ring, align) != (len(more), 0, 0, 0):
+                raise AssertionError('the resumed job launched %s' % (
+                    (fwd, bwd, ring, align),))
+            del snap
+            os.remove(checkpoints[15])
+            log('train job, resumed: from model_iter15.pkl at iteration %d, '
+                'the momentum it starts from equal to the snapshot\'s '
+                '(bitwise, %d blobs), %d steps, K1 launches %d' % (
+                    started['iter'], len(started['momentum']), len(more),
+                    fwd))
+            started.clear()
+
+            # a finished job is skipped
+            reset_cfg()
+            del messages[:]
+            _, none, _ = tool.main(['--skip-test'] + argv, images=pixels)
+            skipped = 'model_final.pkl exists; skipping training' in messages
+            if none or started or not skipped:
+                raise AssertionError('a finished job ran %d steps' % len(none))
+            log('train job, third run: %r, 0 steps' % messages[0])
+            for name, seconds, size in saves:
+                log('train job: %s written in %.2f s, %.1f MiB' % (
+                    name, seconds, size / 2 ** 20))
+    finally:
+        ckpt.save_weights_file = save
+        train_engine.train_loop = loop
+        tool.test_model = test_model
+        logging.getLogger(train_engine.__name__).removeHandler(catcher)
+    return fwd + total[0]
 
 
 def host_ms(fn, reps=10):
@@ -1613,7 +1975,9 @@ def profile_train_step(name, model, opt_state, roidb):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from nafwebsod_torch.core.config import cfg
-    from nafwebsod_torch.engine.train import build_minibatch, create_solver
+    from nafwebsod_torch.data.loader import (build_minibatch,
+                                             class_to_images)
+    from nafwebsod_torch.engine.train import create_solver
     from nafwebsod_torch.ops import cpg as cpg_ops
     from nafwebsod_torch.parallel import train_step as ts
     from nafwebsod_torch.solver import sgd
@@ -1625,8 +1989,11 @@ def profile_train_step(name, model, opt_state, roidb):
     gen.manual_seed(7)
     lr = np.float32(cfg.SOLVER.BASE_LR)
 
+    class2idx = class_to_images(roidb)
+
     def minibatch():
-        return device_batch(model, build_minibatch(roidb, 0, rng))
+        return device_batch(model,
+                            build_minibatch(roidb, 0, rng, class2idx))
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1711,10 +2078,11 @@ def main():
         fcn_train_fwd, fcn_train_align = phase_train_seg_fcn()
         box_align = phase_align_box_transform()
         deeplab_fwd, deeplab_bwd = phase_seg_deeplab()
+        job_fwd = phase_train_job()
         # each path was driven with the counts set to 0 just before it
         k1['launches'] = (infer_fwd + train_fwd + csc_fwd + ctx_infer_fwd
                           + ctx_train_fwd + fcn_infer_fwd + fcn_train_fwd
-                          + deeplab_fwd)
+                          + deeplab_fwd + job_fwd)
         k2['launches'] = ctx_infer_ring + ctx_train_ring
         csc_bwd = k3['launches']
         k3['launches'] = csc_bwd + deeplab_bwd
@@ -1725,12 +2093,15 @@ def main():
         log('K1 launches by path: flagship inference %d, flagship training '
             '%d, CSC training %d, context inference %d, context training '
             '%d, SEG_FCN inference %d, SEG_FCN training %d, SEG inference '
-            'and training %d; K2 launches: context inference %d, context '
+            'and training %d, the training job (training, its resumption '
+            'and the tests of three models) %d; K2 launches: context '
+            'inference %d, context '
             'training %d; K3 launches: CSC training %d, SEG training %d; K4 '
             'launches: SEG_FCN inference %d, SEG_FCN training %d, box '
             'transform %d' % (
                 infer_fwd, train_fwd, csc_fwd, ctx_infer_fwd, ctx_train_fwd,
-                fcn_infer_fwd, fcn_train_fwd, deeplab_fwd, ctx_infer_ring,
+                fcn_infer_fwd, fcn_train_fwd, deeplab_fwd, job_fwd,
+                ctx_infer_ring,
                 ctx_train_ring, csc_bwd, deeplab_bwd, fcn_infer_align,
                 fcn_train_align, box_align))
         kernels.extend([k1, k2, k3, k4])

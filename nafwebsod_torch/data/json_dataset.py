@@ -199,9 +199,13 @@ class JsonDataset:
                                  'has %d' % (len(per_image), len(roidb)))
         for entry, (pid, boxes, scores) in zip(roidb, per_image):
             _validate_proposal_boxes(entry, pid, boxes)
-            for keep in (box_utils.unique_boxes(boxes),
-                         box_utils.filter_small_boxes(boxes, min_size)):
-                boxes, scores = boxes[keep], scores[keep]
+            # one filter after the other: each one's indices are into the
+            # boxes the one before kept (the JAX package computes both on
+            # the unfiltered boxes, which breaks when a box repeats)
+            keep = box_utils.unique_boxes(boxes)
+            boxes, scores = boxes[keep], scores[keep]
+            keep = box_utils.filter_small_boxes(boxes, min_size)
+            boxes, scores = boxes[keep], scores[keep]
             rank = np.argsort(-scores)
             if top_k > 0:
                 rank = rank[:top_k]

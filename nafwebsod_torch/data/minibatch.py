@@ -71,7 +71,9 @@ def prep_im_for_blob(im, pixel_means, target_size, max_size,
     ((H', W', 3) float32 tensor on ``device``, im_scale). The normalisation
     is computed in float64 and rounded to float32 after each step, as the
     numpy path does with its float64 means."""
-    x = torch.as_tensor(np.asarray(im), device=device).to(torch.float64)
+    # a flipped image is a view with a negative stride, which torch refuses
+    x = torch.as_tensor(np.ascontiguousarray(im), device=device).to(
+        torch.float64)
     x = (x - torch.as_tensor(np.asarray(pixel_means, np.float64),
                              device=device).reshape(1, 1, -1)).float()
     if pixel_stds is not None:
@@ -243,20 +245,25 @@ def get_minibatch(entry, rng=None, pad_rois_to=None, size_bucket=None,
     if target_size is None:
         target_size = cfg.TRAIN.SCALES[rng.randint(0, len(cfg.TRAIN.SCALES))]
     im, im_scale, im_crop = get_image_blob(entry, target_size, rng)
+    # the image's own extent, before the bucket padding: the context head
+    # clips its rings there, as at test time (the JAX package records the
+    # padded canvas here)
+    im_hw = np.array(im.shape[:2], np.float32)
     if size_bucket:
         im = pad_image_to_bucket(torch.from_numpy(im), size_bucket).numpy()
     blobs = sample_rois(entry, im_scale, im_crop, cfg.MODEL.NUM_CLASSES,
                         cfg.TRAIN.BATCH_SIZE_PER_IM, pad_to=pad_rois_to)
     blobs['data'] = im[None, :, :, :]  # (1, H, W, 3)
     blobs['im_scale'] = im_scale
-    blobs['im_hw'] = np.array(im.shape[:2], np.float32)
+    blobs['im_hw'] = im_hw
     blobs['data_ids'] = np.array([entry.get('id', 0)], dtype=np.int32)
     return blobs
 
 
 def mixup_blobs(blobs_a, blobs_b, lam, max_rois=None):
     """Bagging-mixup: blend the two images and their one-hot labels with
-    ``lam`` and keep the union of both images' RoIs. With ``max_rois`` the
+    ``lam`` and keep the union of both images' RoIs; ``im_hw`` is the
+    larger of the two images' extents. With ``max_rois`` the
     union is cut to the top boxes by objectness and padded back up to it."""
     a, b = blobs_a['data'], blobs_b['data']
     h = max(a.shape[1], b.shape[1])
@@ -266,7 +273,8 @@ def mixup_blobs(blobs_a, blobs_b, lam, max_rois=None):
     canvas[:, :b.shape[1], :b.shape[2]] += (1.0 - lam) * b
     out = dict(blobs_a)
     out['data'] = canvas
-    out['im_hw'] = np.array([h, w], np.float32)
+    # the larger of the two images' own extents, not the canvas's
+    out['im_hw'] = np.maximum(blobs_a['im_hw'], blobs_b['im_hw'])
     out['labels_oh'] = (lam * blobs_a['labels_oh'] +
                         (1.0 - lam) * blobs_b['labels_oh'])
 

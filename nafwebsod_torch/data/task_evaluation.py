@@ -1,14 +1,16 @@
 """Evaluation dispatch and the EXPECTED_RESULTS regression gate (the port's
 own copy of the JAX package's ``data/task_evaluation.py``): box results go
-to the VOC evaluator (AP and CorLoc, for datasets with a devkit). The COCO
-and Cityscapes evaluators and the evaluation of masks and keypoints are not
-ported yet and raise ``NotImplementedError``."""
+to the VOC evaluator (AP and CorLoc) for datasets with a devkit, and to
+the COCO-protocol evaluator for the others. The Cityscapes evaluator and
+the evaluation of masks and keypoints are not ported yet and raise
+``NotImplementedError``."""
 
 import logging
 import os
 
 from nafwebsod_torch.core.config import cfg
-from nafwebsod_torch.data import catalog, voc_dataset_evaluator
+from nafwebsod_torch.data import (catalog, coco_evaluator,
+                                  voc_dataset_evaluator)
 
 logger = logging.getLogger(__name__)
 
@@ -25,14 +27,11 @@ def _use_voc_evaluator(dataset_name):
 
 def evaluate_boxes(json_dataset, all_boxes, output_dir, image_ids=None):
     logger.info('Evaluating detections')
-    if not _use_voc_evaluator(json_dataset.name):
-        raise NotImplementedError(
-            'dataset {} has no VOC devkit directory (or '
-            'TEST.FORCE_JSON_DATASET_EVAL is set): the COCO-protocol and '
-            'Cityscapes evaluators are not ported yet'.format(
-                json_dataset.name))
-    return voc_dataset_evaluator.evaluate_boxes(
-        json_dataset, all_boxes, output_dir, image_ids=image_ids)
+    if _use_voc_evaluator(json_dataset.name):
+        return voc_dataset_evaluator.evaluate_boxes(
+            json_dataset, all_boxes, output_dir, image_ids=image_ids)
+    return coco_evaluator.evaluate_boxes(json_dataset, all_boxes, output_dir,
+                                         image_ids=image_ids)
 
 
 def evaluate_masks(json_dataset, all_boxes, all_segms, output_dir):
@@ -44,11 +43,12 @@ def evaluate_masks(json_dataset, all_boxes, all_segms, output_dir):
 
 def evaluate_all(dataset, all_boxes, all_segms, all_keyps, output_dir,
                  image_ids=None):
-    """{dataset name: {'ap', 'mAP', 'corloc', 'mean_corloc'}}.
-    ``image_ids``: the detection-time ids of the images, aligned with the
-    positional index of all_boxes[cls][i] (``test_net`` saves them in
-    detections.pkl); the evaluator checks them against the devkit's image
-    set. Asked to score segms or keypoints it raises."""
+    """{dataset name: {'ap', 'mAP', 'corloc', 'mean_corloc'}} with a VOC
+    devkit, {dataset name: {'AP', 'AP50', 'AP75', 'APs', 'APm', 'APl'}}
+    without. ``image_ids``: the detection-time ids of the images, aligned
+    with the positional index of all_boxes[cls][i] (``test_net`` saves them
+    in detections.pkl); the VOC evaluator checks them against the devkit's
+    image set. Asked to score segms or keypoints it raises."""
     if all_segms is not None:
         evaluate_masks(dataset, all_boxes, all_segms, output_dir)
     if all_keyps is not None:

@@ -1,24 +1,33 @@
-"""The training loop on one card (port of the JAX package's
-``engine/train.py``: minibatch, learning rate, momentum correction at
-learning-rate boundaries, the train step, a final checkpoint).
+"""Training on one card (port of the JAX package's
+``engine/train.py``): the training roidb, AUTO_RESUME, the initial
+weights, the threaded loader, the learning-rate schedule with momentum
+correction at its boundaries, the train step, ``json_stats:`` lines,
+periodic snapshots, the NaN guard and ``model_final.pkl``.
 
-The roidb is a list of entries, each a dict with ``'image'`` (an (H, W, 3)
-uint8 BGR array), ``'boxes'`` (R, 4) proposals sorted by objectness,
-``'obn_scores'`` (R, 1) and ``'gt_classes'`` (the image's classes, > 0).
-Not ported yet: dataset loading, the loader threads, periodic snapshots
-and AUTO_RESUME, training statistics, a CLI.
+``train_model`` is the job a user starts (``tools/train_net_torch.py``);
+``train_loop`` is its loop over a built model and solver, for callers that
+keep the model.
+
+A roidb is a list of entries, each a dict with ``'image'`` (an (H, W, 3)
+uint8 BGR array or the path of an image file), ``'width'`` and
+``'height'``, ``'boxes'`` (R, 4) proposals sorted by objectness,
+``'obn_scores'`` (R, 1) and ``'gt_classes'`` (the image's classes, > 0);
+``data/roidb.py:combined_roidb_for_training`` builds it from the cfg's
+datasets. Not ported: the ``WSL.SAMPLE`` visualisation dumps.
 """
 
 import logging
 import os
+import threading
 import time
 
 import numpy as np
 import torch
 
-from nafwebsod_torch.core.config import cfg, dump_cfg_or_none
-from nafwebsod_torch.data.minibatch import (get_minibatch, mixup_blobs,
-                                            pad_image_to_bucket)
+from nafwebsod_torch.core.config import (cfg, dump_cfg_or_none,
+                                         get_output_dir)
+from nafwebsod_torch.data.loader import RoIDataLoader
+from nafwebsod_torch.data.roidb import combined_roidb_for_training
 from nafwebsod_torch.engine.test_engine import initialize_model_from_cfg
 from nafwebsod_torch.models.detector import trainable_param_names
 from nafwebsod_torch.parallel import train_step as ts
@@ -26,46 +35,9 @@ from nafwebsod_torch.solver import sgd
 from nafwebsod_torch.utils import checkpoint as ckpt
 from nafwebsod_torch.utils import lr_policy
 from nafwebsod_torch.utils.bridge import blob_names, named_blobs
+from nafwebsod_torch.utils.training_stats import TrainingStats
 
 logger = logging.getLogger(__name__)
-
-
-def _round_up(n, multiple):
-    return ((n + multiple - 1) // multiple) * multiple
-
-
-def _image_label(entry):
-    """First positive image-level class; mixup partners must share it."""
-    gt = np.asarray(entry['gt_classes'])
-    return int(gt[gt > 0][0])
-
-
-def build_minibatch(roidb, index, rng):
-    """The blobs of roidb entry ``index``. With WEBLY.BAGGING_MIXUP, with
-    probability 0.2 a second image of the same class is drawn and blended
-    in with lambda ~ Beta(alpha, alpha)."""
-    pad_rois_to = _round_up(cfg.TRAIN.BATCH_SIZE_PER_IM,
-                            cfg.TPU.ROI_PAD_MULTIPLE)
-    size_bucket = cfg.TPU.SIZE_BUCKET_MULTIPLE
-    entry = roidb[index]
-    blobs = get_minibatch(entry, rng=rng, pad_rois_to=pad_rois_to,
-                          size_bucket=size_bucket)
-    if (cfg.WEBLY.WEBLY_ON and cfg.WEBLY.BAGGING_MIXUP
-            and rng.random_sample() > 0.8):
-        label = _image_label(entry)
-        same_class = [i for i, e in enumerate(roidb)
-                      if _image_label(e) == label]
-        partner = roidb[same_class[rng.randint(len(same_class))]]
-        blobs_b = get_minibatch(partner, rng=rng, pad_rois_to=pad_rois_to,
-                                size_bucket=size_bucket)
-        lam = rng.beta(cfg.WEBLY.BAGGING_MIXUP_ALPHA,
-                       cfg.WEBLY.BAGGING_MIXUP_ALPHA)
-        blobs = mixup_blobs(blobs, blobs_b, lam, max_rois=pad_rois_to)
-        if size_bucket:
-            blobs['data'] = pad_image_to_bucket(
-                torch.from_numpy(blobs['data'][0]), size_bucket).numpy()[None]
-        blobs['mixup'] = True
-    return blobs
 
 
 def create_solver(model):
@@ -81,56 +53,132 @@ def create_solver(model):
     return hp, mults, sgd.init_state(params, hp, mults)
 
 
-def train_model(roidb, max_iters=None, device=None, output_dir=None,
-                weights_file=None, start_iter=0):
-    """Train the cfg's model on ``roidb`` for iterations ``start_iter`` to
-    ``max_iters`` (SOLVER.MAX_ITER when None) on ``device`` (the card
-    unless ``device='cpu'``), one image per step, cycling through the
-    roidb in order. With ``output_dir`` it writes ``model_final.pkl``
-    there, momentum included. Returns (model, opt_state, records), one
-    record per step: {'iter', 'lr', 'loss', 'mixup', 'data_s' (host clock:
-    minibatch and upload), 'step_s' (host clock: the step, up to the loss
-    on the host), aux entries}."""
-    max_iters = cfg.SOLVER.MAX_ITER if max_iters is None else max_iters
-    model = initialize_model_from_cfg(device=device)
-    hp, mults, opt_state = create_solver(model)
-    if weights_file:
-        ckpt.initialize_from_weights_file(
-            model, weights_file, strict_shapes=False,
-            momentum=opt_state['momentum'])
-    rng = np.random.RandomState(cfg.RNG_SEED)
+def save_checkpoint(path, model, opt_state):
+    """``model``'s weights and the solver's momentum as a reference pkl."""
+    logger.info('Saving checkpoint to %s', path)
+    ckpt.save_weights_file(path, model, cfg_yaml=dump_cfg_or_none(),
+                           momentum=opt_state['momentum'])
+    return path
+
+
+def train_loop(model, solver, roidb, start_iter=0, max_iters=None,
+               output_dir=None, checkpoints=None):
+    """Iterations ``start_iter`` to ``max_iters`` (SOLVER.MAX_ITER when
+    None) of ``model`` with ``solver`` (``create_solver``), in place, on
+    minibatches of ``roidb`` from a ``RoIDataLoader``. With ``output_dir``
+    it writes ``model_iter<N>.pkl`` after every TRAIN.SNAPSHOT_ITERS-th
+    iteration N but the last, into ``checkpoints[N]``; on a NaN loss it
+    writes ``model_nan.pkl`` of the state before that step, then raises
+    FloatingPointError. A loader thread's failure raises here.
+
+    Returns one record per step: {'iter', 'lr', 'loss', 'mixup',
+    'queue_size' (minibatches waiting when the step took its own),
+    'data_s' (host clock: the wait on the loader's queue), 'upload_s' (the
+    copy to the device), 'step_s' (the step, up to the loss on the host),
+    aux entries}."""
+    max_iters = max_iters or cfg.SOLVER.MAX_ITER
+    hp, mults, opt_state = solver
+    if cfg.WSL.SAMPLE:
+        logger.info('WSL.SAMPLE: the training visualisation dumps are not '
+                    'ported; training without them')
     generator = torch.Generator(device=model.device)
     generator.manual_seed(cfg.RNG_SEED)
+    stats = TrainingStats(device=model.device)
+    snapshot_iters = max(cfg.TRAIN.SNAPSHOT_ITERS, 1)
     records = []
-    lr_prev = lr_policy.get_lr_at_iter(start_iter)
-    for it in range(start_iter, max_iters):
-        t0 = time.time()
-        blobs = build_minibatch(roidb, it % len(roidb), rng)
-        batch = ts.to_device_batch(
-            ts.stack_minibatches([blobs], cfg.TPU.SIZE_BUCKET_MULTIPLE),
-            model.device, cur_iter=it)
-        lr = lr_policy.get_lr_at_iter(it)
-        factor = sgd.momentum_correction_factor(cfg, lr, lr_prev)
-        if factor is not None:
-            logger.info('LR boundary at iter %d: scaling momentum by %s',
-                        it, factor)
-            sgd.scale_momentum(opt_state, np.float32(factor))
-        lr_prev = lr
-        t1 = time.time()
-        loss, aux = ts.train_step(model, opt_state, batch, lr, generator,
-                                  hp=hp, mults=mults)
-        record = {'iter': it, 'lr': float(lr), 'loss': float(loss),
-                  'mixup': bool(blobs.get('mixup', False))}
-        record.update(data_s=t1 - t0, step_s=time.time() - t1)
-        record.update({k: float(v) for k, v in aux.items()})
-        if np.isnan(record['loss']):
-            raise FloatingPointError('Loss is NaN at iter {}'.format(it))
-        records.append(record)
-        logger.info('iter %d lr %.6f loss %.6f', it, record['lr'],
-                    record['loss'])
-    if output_dir is not None:
-        os.makedirs(output_dir, exist_ok=True)
-        ckpt.save_weights_file(
-            os.path.join(output_dir, 'model_final.pkl'), model,
-            cfg_yaml=dump_cfg_or_none(), momentum=opt_state['momentum'])
-    return model, opt_state, records
+    loader = RoIDataLoader(roidb)
+    if threading.current_thread() is threading.main_thread():
+        loader.register_sigint_handler()
+    try:
+        loader.start(prefill=True)
+        lr_prev = lr_policy.get_lr_at_iter(start_iter)
+        for it in range(start_iter, max_iters):
+            stats.IterTic()
+            t0 = time.time()
+            queue_size = loader.queue_size()
+            blobs = loader.get()
+            t1 = time.time()
+            batch = ts.to_device_batch(
+                ts.stack_minibatches([blobs], cfg.TPU.SIZE_BUCKET_MULTIPLE),
+                model.device, cur_iter=it)
+            lr = lr_policy.get_lr_at_iter(it)
+            factor = sgd.momentum_correction_factor(cfg, lr, lr_prev)
+            if factor is not None:
+                logger.info('LR boundary at iter %d: scaling momentum by %s',
+                            it, factor)
+                sgd.scale_momentum(opt_state, np.float32(factor))
+            lr_prev = lr
+            t2 = time.time()
+            try:
+                loss, aux = ts.train_step(model, opt_state, batch, lr,
+                                          generator, hp=hp, mults=mults)
+            except FloatingPointError:
+                if output_dir is not None:
+                    save_checkpoint(os.path.join(output_dir,
+                                                 'model_nan.pkl'),
+                                    model, opt_state)
+                raise FloatingPointError('Loss is NaN at iter {}'.format(it))
+            record = {'iter': it, 'lr': float(lr), 'loss': float(loss),
+                      'mixup': bool(blobs.get('mixup', False)),
+                      'queue_size': queue_size, 'data_s': t1 - t0,
+                      'upload_s': t2 - t1, 'step_s': time.time() - t2}
+            record.update({k: float(v) for k, v in aux.items()})
+            records.append(record)
+            stats.UpdateIterStats(record['loss'],
+                                  {k: record[k] for k in aux})
+            stats.IterToc()
+            stats.LogIterStats(it, lr, queue_size=loader.queue_size())
+            if (output_dir is not None and (it + 1) % snapshot_iters == 0
+                    and it + 1 < max_iters):
+                path = save_checkpoint(os.path.join(
+                    output_dir, 'model_iter{}.pkl'.format(it)), model,
+                    opt_state)
+                if checkpoints is not None:
+                    checkpoints[it] = path
+    finally:
+        loader.shutdown()
+    return records
+
+
+def train_model(roidb=None, max_iters=None, device=None, images=None):
+    """Train the cfg's model on ``device`` (the card unless
+    ``device='cpu'``) into ``get_output_dir(TRAIN.DATASETS)``. Without
+    ``roidb`` it is built from TRAIN.DATASETS and TRAIN.PROPOSAL_FILES;
+    ``images`` optionally maps image ids to (H, W, 3) uint8 BGR arrays
+    handed over in place of the image files. Under TRAIN.AUTO_RESUME an
+    existing ``model_final.pkl`` ends the job at once and the newest
+    ``model_iter<N>.pkl`` resumes it at N + 1, weights and momentum;
+    otherwise it starts from TRAIN.WEIGHTS (seeded random weights when
+    empty). Returns (checkpoints {iter or 'final': path}, records of
+    ``train_loop``)."""
+    output_dir = get_output_dir(cfg.TRAIN.DATASETS, training=True)
+    checkpoints = {}
+    weights_file, start_iter = cfg.TRAIN.WEIGHTS, 0
+    if cfg.TRAIN.AUTO_RESUME:
+        path, it = ckpt.find_checkpoint_for_resume(output_dir)
+        if path is not None and it is None:
+            logger.info('model_final.pkl exists; skipping training')
+            checkpoints['final'] = path
+            return checkpoints, []
+        if path is not None:
+            logger.info('Resuming from %s (iter %d)', path, it)
+            weights_file, start_iter = path, it
+    model = initialize_model_from_cfg(device=device)
+    solver = create_solver(model)
+    if weights_file:
+        unmatched = ckpt.initialize_from_weights_file(
+            model, weights_file, strict_shapes=False,
+            momentum=solver[2]['momentum'])
+        if unmatched:
+            logger.info('Randomly initialized: %s', sorted(unmatched))
+    if roidb is None:
+        roidb = combined_roidb_for_training(cfg.TRAIN.DATASETS,
+                                            cfg.TRAIN.PROPOSAL_FILES)
+        if images is not None:
+            for entry in roidb:
+                entry['image'] = images[entry['id']]
+    records = train_loop(model, solver, roidb, start_iter, max_iters,
+                         output_dir, checkpoints)
+    checkpoints['final'] = save_checkpoint(
+        os.path.join(output_dir, 'model_final.pkl'), model, solver[2])
+    return checkpoints, records

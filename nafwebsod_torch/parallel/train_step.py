@@ -5,6 +5,8 @@ mesh and no multi-step loop: every WSL configuration trains one image
 per device.
 """
 
+import math
+
 import numpy as np
 import torch
 
@@ -63,10 +65,14 @@ def train_step(model, opt_state, batch, lr, generator=None, *, hp, mults):
     batch: one image's tensors on the model's device (``to_device_batch``);
     ``generator`` draws the dropout masks (None: no dropout); ``mults`` maps
     blob names to (lr_mult, decay_mult), (0, 0) for frozen parameters.
-    Returns (loss, aux) detached."""
+    The loss is read on the host before the update: a NaN loss raises
+    FloatingPointError and leaves the parameters and ``opt_state`` as they
+    were. Returns (loss, aux) detached."""
     params = named_blobs(model)
     names = [n for n in params if mults[n] != (0.0, 0.0)]
     total, aux = model.forward_train(batch, generator)
     grads = torch.autograd.grad(total, [params[n] for n in names])
+    if math.isnan(total.item()):
+        raise FloatingPointError('the training loss is NaN')
     sgd.update(params, dict(zip(names, grads)), opt_state, lr, hp, mults)
     return total.detach(), {k: v.detach() for k, v in aux.items()}

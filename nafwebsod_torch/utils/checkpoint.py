@@ -11,6 +11,7 @@ bitwise; ``__preserve__/`` blobs are ignored.
 """
 
 import logging
+import os
 import re
 
 import numpy as np
@@ -87,3 +88,21 @@ def save_weights_file(path, model, cfg_yaml=None, momentum=None):
     if cfg_yaml is not None:
         out['cfg'] = cfg_yaml
     io_utils.save_object(out, path)
+
+
+def find_checkpoint_for_resume(output_dir):
+    """The AUTO_RESUME scan: (model_final.pkl, None) when training has
+    finished, else (the newest model_iter<N>.pkl, N + 1), else (None, 0)."""
+    final_path = os.path.join(output_dir, 'model_final.pkl')
+    if os.path.exists(final_path):
+        return final_path, None
+    best_iter, best_path = -1, None
+    if os.path.isdir(output_dir):
+        for fname in os.listdir(output_dir):
+            m = re.match(r'^model_iter(\d+)\.pkl$', fname)
+            if m and int(m.group(1)) > best_iter:
+                best_iter = int(m.group(1))
+                best_path = os.path.join(output_dir, fname)
+    if best_path is None:
+        return None, 0
+    return best_path, best_iter + 1

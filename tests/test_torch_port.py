@@ -42,7 +42,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(' ', 1)
-    assert int(count) >= 41      # the data, evaluator and seg modules too
+    assert int(count) >= 46      # the training surface too
     assert bad.strip() == '[]', proc.stdout
 
 
@@ -73,29 +73,56 @@ def test_the_test_cli_imports_nothing_of_jax():
                 if m.split('.')[0] in ('jax', 'jaxlib', 'nafwebsod_tpu')]
 
 
+def test_the_train_cli_imports_nothing_of_jax():
+    imported = _imported_modules('tools', 'train_net_torch.py')
+    assert 'nafwebsod_torch.engine' in imported
+    assert not [m for m in imported
+                if m.split('.')[0] in ('jax', 'jaxlib', 'nafwebsod_tpu')]
+
+
 def test_chip_smoke_flagship_seed_blends_the_second_step():
     """chip_smoke.py's flagship training phase asserts that exactly its
-    second step is a bagging-mixup blend; the draws are host-only numpy,
-    so the seed is held here."""
+    second step is a bagging-mixup blend; it draws through the loader with
+    one thread, whose stream is host-only numpy from cfg.RNG_SEED, so the
+    seed is held here."""
     sys.path.insert(0, REPO)
     try:
         import chip_smoke
     finally:
         sys.path.remove(REPO)
-    from nafwebsod_torch.engine.train import build_minibatch
+    from nafwebsod_torch.data.loader import RoIDataLoader
     port_config.reset_cfg()
     try:
         port_config.merge_cfg_from_cfg(port_config.FLAGSHIP)
         cfg = port_config.cfg
+        cfg.RNG_SEED = chip_smoke.FLAGSHIP_TRAIN_SEED
         # smaller images: the draws do not depend on the scale
         cfg.TRAIN.SCALES = (96, 112, 128, 144, 160)
         roidb = chip_smoke.train_roidb(cfg.PIXEL_MEANS)
-        rng = np.random.RandomState(chip_smoke.FLAGSHIP_TRAIN_SEED)
-        blends = [bool(build_minibatch(roidb, i, rng).get('mixup', False))
+        cfg.DATA_LOADER.NUM_THREADS = 1
+        loader = RoIDataLoader(roidb)
+        blends = [bool(loader.build_minibatch().get('mixup', False))
                   for i in range(4)]
         assert blends == [False, True, False, False]
     finally:
         port_config.reset_cfg()
+
+
+def test_every_training_module_is_behind_the_import_fence():
+    """The fence above walks the package: the modules of the training
+    surface and the COCO evaluator must be in it."""
+    import pkgutil
+    import nafwebsod_torch
+    names = {m.name for m in pkgutil.walk_packages(nafwebsod_torch.__path__,
+                                                   'nafwebsod_torch.')}
+    for name in ('utils.coordinator', 'utils.logging_utils',
+                 'utils.training_stats', 'data.loader', 'data.coco_evaluator',
+                 'engine.train'):
+        assert 'nafwebsod_torch.' + name in names, name
+        imported = _imported_modules(*('nafwebsod_torch.' + name).split('.')[
+            :-1], name.split('.')[-1] + '.py')
+        assert not [m for m in imported if m and m.split('.')[0] in (
+            'jax', 'jaxlib', 'nafwebsod_tpu', 'cv2', 'yaml')], name
 
 
 def test_every_seg_module_is_behind_the_import_fence():

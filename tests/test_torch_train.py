@@ -14,6 +14,8 @@ parameters (the gradients' differences reach them times the learning rate,
 1e-3) and rtol 1e-4 on the losses; numpy blobs bitwise.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +30,8 @@ from nafwebsod_tpu.solver import sgd as jax_sgd
 from nafwebsod_tpu.utils import checkpoint as jax_ckpt
 from nafwebsod_tpu.utils import lr_policy as jax_lr_policy
 from nafwebsod_torch.core import config as port_config
-from nafwebsod_torch.data import minibatch
+from nafwebsod_torch.data import loader, minibatch
+from nafwebsod_torch.engine import test_engine
 from nafwebsod_torch.engine import train as train_engine
 from nafwebsod_torch.models import detector, heads
 from nafwebsod_torch.parallel import train_step as ts
@@ -304,6 +307,7 @@ def _entry(rng, h=60, w=80, n=30, classes=(2, 4)):
     gt = np.zeros(n + len(classes), np.int32)
     gt[:len(classes)] = classes
     return {'image': rng.randint(0, 256, (h, w, 3)).astype(np.uint8),
+            'width': w, 'height': h,
             'boxes': np.vstack([boxes[:len(classes)], boxes]),
             'obn_scores': rng.rand(n + len(classes), 1).astype(np.float32),
             'gt_classes': gt, 'id': 7}
@@ -334,6 +338,7 @@ def test_mixup_blobs_is_bitwise_the_jax_packages(max_rois):
         crop = np.array([0, 0, h - 1, w - 1], np.int32)
         b = jax_minibatch.sample_rois(entry, 1.0, crop, 5, 24, pad_to=32)
         b['data'] = rng.randn(1, h, w, 3).astype(np.float32)
+        b['im_hw'] = np.array([h, w], np.float32)
         blobs.append(b)
     got = minibatch.mixup_blobs(blobs[0], blobs[1], 0.3, max_rois=max_rois)
     want = jax_minibatch.mixup_blobs(blobs[0], blobs[1], 0.3,
@@ -349,7 +354,9 @@ def test_mixup_blobs_is_bitwise_the_jax_packages(max_rois):
 def test_get_minibatch_follows_the_jax_packages_draws_and_blobs(tmp_path):
     """The same RandomState stream gives the same scale, crop and RoIs; the
     image differs by the resize (cv2 against torch, atol 2e-2) with the
-    HSV jitter off; the jitter is held against cv2 on its own."""
+    HSV jitter off; the jitter is held against cv2 on its own. One stated
+    departure: ``im_hw`` is the image's own extent, where the JAX package
+    records the bucket-padded canvas (its comment says the extent)."""
     import cv2
     entry = _entry(np.random.RandomState(2), 60, 80)
     path = str(tmp_path / 'im.png')
@@ -367,11 +374,20 @@ def test_get_minibatch_follows_the_jax_packages_draws_and_blobs(tmp_path):
                                   pad_rois_to=32, size_bucket=32)
     assert set(got) == set(want)
     for k in ('rois', 'obn_scores', 'labels_oh', 'labels_int32',
-              'valid_mask', 'im_hw', 'data_ids'):
+              'valid_mask', 'data_ids'):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert got['im_scale'] == want['im_scale']
     assert got['data'].shape == want['data'].shape
     np.testing.assert_allclose(got['data'], want['data'], atol=2e-2)
+    # the departure: the extent before the bucket padding, which the JAX
+    # package records as its im_hw
+    unpadded = minibatch.get_minibatch(entry, rng=np.random.RandomState(5),
+                                       pad_rois_to=32)
+    h, w = unpadded['data'].shape[1:3]
+    assert got['im_hw'].dtype == want['im_hw'].dtype == np.float32
+    np.testing.assert_array_equal(got['im_hw'], [h, w])
+    np.testing.assert_array_equal(want['im_hw'], got['data'].shape[1:3])
+    assert (h, w) != got['data'].shape[1:3]
 
     for c in (jax_config.cfg, port_config.cfg):
         c.WSL.USE_DISTORTION = True
@@ -434,7 +450,7 @@ def test_checkpoint_with_momentum_round_trips_bitwise(tmp_path):
     assert torch.equal(model.head.fc8c.weight, fresh.head.fc8c.weight)
 
 
-def _tiny_cfg(base):
+def _tiny_cfg(base, output_dir=None):
     port_config.merge_cfg_from_cfg(base)
     c = port_config.cfg
     c.MODEL.NUM_CLASSES = 5
@@ -445,9 +461,13 @@ def _tiny_cfg(base):
     c.TRAIN.SCALES = (48, 64)
     c.TRAIN.MAX_SIZE = 100
     c.TRAIN.BATCH_SIZE_PER_IM = 24
+    c.TRAIN.WEIGHTS = ''
+    c.DATA_LOADER.NUM_THREADS = 1
     c.SOLVER.BASE_LR = 1e-4
     c.SOLVER.STEPS = [0, 2]
     c.RNG_SEED = 3
+    if output_dir is not None:
+        c.OUTPUT_DIR = output_dir
 
 
 def _roidb(n=3):
@@ -456,9 +476,11 @@ def _roidb(n=3):
 
 
 def test_train_model_flagship_runs_and_checkpoints(tmp_path):
-    _tiny_cfg(port_config.FLAGSHIP)
-    model, state, records = train_engine.train_model(
-        _roidb(), max_iters=4, device='cpu', output_dir=str(tmp_path))
+    _tiny_cfg(port_config.FLAGSHIP, str(tmp_path))
+    checkpoints, records = train_engine.train_model(_roidb(), max_iters=4,
+                                                    device='cpu')
+    out = tmp_path / 'train' / 'flickr_voc' / 'generalized_wsl'
+    assert checkpoints == {'final': str(out / 'model_final.pkl')}
     assert [r['iter'] for r in records] == [0, 1, 2, 3]
     assert all(np.isfinite(r['loss']) for r in records)
     assert {'loss_cls', 'loss_cls_noise', 'class_weight_mean'} <= set(
@@ -466,33 +488,40 @@ def test_train_model_flagship_runs_and_checkpoints(tmp_path):
     # the learning rate steps at iteration 2 and momentum is corrected once
     assert records[1]['lr'] == pytest.approx(1e-4)
     assert records[2]['lr'] == pytest.approx(1e-5)
-    assert state['it'] == 4 and state['momentum']['fc6_w'].any()
-    assert not state['momentum']['conv1_1_w'].any()
-    blobs, saved_cfg = checkpoint.load_weights_pkl(
-        str(tmp_path / 'model_final.pkl'))
+    blobs, saved_cfg = checkpoint.load_weights_pkl(checkpoints['final'])
     assert 'fc6_w_momentum' in blobs and '_[noisy]_fc7_b_momentum' in blobs
+    assert blobs['fc6_w_momentum'].any()
+    assert not blobs['conv1_1_w_momentum'].any()
+    # same seed, same run: the loop on a model of the caller's gives the
+    # same losses, and the pkl holds its weights and momentum
+    model = test_engine.initialize_model_from_cfg(device='cpu')
+    solver = train_engine.create_solver(model)
+    again = train_engine.train_loop(model, solver, _roidb(), max_iters=4)
+    assert [r['loss'] for r in again] == [r['loss'] for r in records]
+    state = solver[2]
+    assert state['it'] == 4
     np.testing.assert_array_equal(blobs['fc8d_w'],
                                   model.head.fc8d.weight.detach().numpy())
-    # same seed, same run
-    _, _, again = train_engine.train_model(_roidb(), max_iters=4,
-                                           device='cpu')
-    assert [r['loss'] for r in again] == [r['loss'] for r in records]
-    # resuming from the checkpoint restores weights and momentum
-    resumed, state2, more = train_engine.train_model(
-        _roidb(), max_iters=4, device='cpu', start_iter=4,
-        weights_file=str(tmp_path / 'model_final.pkl'))
-    assert more == [] and state2['it'] == 0
-    assert torch.equal(resumed.head.fc8d.weight, model.head.fc8d.weight)
-    assert torch.equal(state2['momentum']['fc6_w'],
-                       state['momentum']['fc6_w'])
+    np.testing.assert_array_equal(blobs['fc6_w_momentum'],
+                                  state['momentum']['fc6_w'].numpy())
+    # resuming from a checkpoint restores weights and momentum: as
+    # model_iter3.pkl it resumes at iteration 4 of 4 and saves them again
+    os.rename(checkpoints['final'], str(out / 'model_iter3.pkl'))
+    resumed, more = train_engine.train_model(_roidb(), max_iters=4,
+                                             device='cpu')
+    assert more == []
+    blobs2, _ = checkpoint.load_weights_pkl(resumed['final'])
+    assert set(blobs2) == set(blobs)
+    for k in blobs:
+        np.testing.assert_array_equal(blobs2[k], blobs[k], err_msg=k)
 
 
-def test_train_model_csc_gates_on_cur_iter():
-    _tiny_cfg(port_config.CSC)
+def test_train_model_csc_gates_on_cur_iter(tmp_path):
+    _tiny_cfg(port_config.CSC, str(tmp_path))
     port_config.cfg.WSL.CPG_TAU = 0.0
     port_config.cfg.WSL.CSC_MAX_ITER = 2
-    _, _, records = train_engine.train_model(_roidb(), max_iters=3,
-                                             device='cpu')
+    _, records = train_engine.train_model(_roidb(), max_iters=3,
+                                          device='cpu')
     assert all(np.isfinite(r['loss_cls_pos']) and
                np.isfinite(r['loss_cls_neg']) for r in records)
     assert records[2]['loss_cls_neg'] == pytest.approx(0.0, abs=1e-6)
@@ -503,7 +532,8 @@ def test_build_minibatch_blends_a_same_class_partner():
     _tiny_cfg(port_config.FLAGSHIP)
     roidb = _roidb(4)
     rng = np.random.RandomState(0)
-    seen = [train_engine.build_minibatch(roidb, i % 4, rng)
+    class2idx = loader.class_to_images(roidb)
+    seen = [loader.build_minibatch(roidb, i % 4, rng, class2idx)
             for i in range(40)]
     mixed = [b for b in seen if b.get('mixup')]
     assert 0 < len(mixed) < 20
